@@ -1,0 +1,56 @@
+"""Build the port's objects from the JAX package's pytrees.
+
+Reads a ``sclmd_tpu`` bath or ``GLESystem`` through ``np.asarray`` on
+its attributes, so this module needs no jax import; the tests use it to
+make both packages compute the same thing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sclmd_tpu_torch.baths import PhBath, _contig_start
+from sclmd_tpu_torch.md import GLESystem
+
+
+def _tensor(x, device, dtype=None):
+    return None if x is None else torch.as_tensor(
+        np.array(np.asarray(x)), dtype=dtype, device=device)
+
+
+def from_jax_bath(b, device=None) -> PhBath:
+    """A ``sclmd_tpu.baths.PhBath`` as the port's ``PhBath`` (kernel and
+    noise keep their dtype and shape; setup data become host float64)."""
+    if type(b).__name__ != "PhBath":
+        raise NotImplementedError(
+            f"from_jax_bath: {type(b).__name__} is not ported yet "
+            "(ROADMAP queue 1 item 3)")
+    cids = np.asarray(b.cids).astype(np.int64)
+    return PhBath(
+        cids=cids, cs=_contig_start(cids), T=float(np.asarray(b.T)),
+        gamma=np.asarray(b.gamma, np.float64),
+        gwl=np.asarray(b.gwl, np.float64),
+        kernel=_tensor(b.kernel, device),
+        noise=_tensor(b.noise, device),
+        dt=float(b.dt), nmd=int(b.nmd), ml=int(b.ml), nw=int(b.nw),
+        wmax=float(b.wmax), local=bool(b.local), eta_ad=float(b.eta_ad),
+        classical=bool(b.classical), zpmotion=bool(b.zpmotion),
+        nevecs=None if b.nevecs is None else np.asarray(b.nevecs),
+        nstd=None if b.nstd is None else np.asarray(b.nstd),
+        mode=str(b.mode))
+
+
+def from_jax_system(system, device=None) -> GLESystem:
+    """A ``sclmd_tpu.md.GLESystem`` (harmonic ``dyn``, phonon baths) as
+    the port's ``GLESystem``."""
+    if system.force_fn is not None:
+        raise NotImplementedError(
+            "from_jax_system: force drivers are not ported yet "
+            "(ROADMAP queue 1 item 7)")
+    return GLESystem(
+        dyn=_tensor(system.dyn, device),
+        baths=tuple(from_jax_bath(b, device) for b in system.baths),
+        mask=_tensor(system.mask, device),
+        dt=float(system.dt), nph=int(system.nph), ml=int(system.ml),
+        nmd=int(system.nmd), unconstrained=bool(system.unconstrained))

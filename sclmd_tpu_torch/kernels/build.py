@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``sclmd_tpu_torch/csrc/*.cu`` file has a plain C interface and is
+compiled by ``nvcc`` into ONE shared library for Hopper (``sm_90a``),
+loaded with ``ctypes``. The build runs at first use, never at import,
+into ``sclmd_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
+sources and flags, so an unchanged tree reuses its library and an edited
+one rebuilds. The compiler's ``-Xptxas -v`` report (registers, shared
+memory, spills per kernel) is kept beside the library as ``.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+build_seconds = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) +
+                  glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libsclmd_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet;
+    returns the library path."""
+    global build_seconds
+    out = library_path()
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [p for p in sources() if p.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + log)
+    os.replace(tmp, out)          # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with argtypes set."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(build())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.block_corr_freq_f32.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.block_corr_freq_f32.restype = ci
+    lib.gle_block_f32.argtypes = [vp, vp]
+    lib.gle_block_f32.restype = ci
+    lib.gle_block_smem_bytes.argtypes = [ci, ci, ci, ci]
+    lib.gle_block_smem_bytes.restype = ci
+    _lib = lib
+    return lib
+
+
+def check(rc: int, name: str):
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

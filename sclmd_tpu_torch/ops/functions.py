@@ -1,0 +1,103 @@
+"""Core numerics of the GLE slice (counterpart of ``sclmd_tpu.ops.functions``).
+
+Conventions follow the JAX package exactly; they are load-bearing for
+conductance and pinned by golden-value tests, so none is "fixed":
+
+* Fourier pair: F^-1(t) = int f(w) e^{-iwt} dw/2pi -> ``fft(a) / (N dt)``.
+* Bose edges: T=0 gives -1 for w<0 and 0 for w>=0; T>0 gives 0 at w=0.
+* ``flinterp_np`` anchors on the nearest grid point and takes its slope
+  toward the neighbour on the side of x, clamping at both grid ends.
+
+Host-side setup helpers (``bose``, ``equ_spectrum``, ``flinterp_np``,
+``hermitianize``) are numpy float64; the runtime helpers
+(``fourier_w2t``, ``rpadleft``) take torch tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sclmd_tpu_torch import units as U
+
+
+def fourier_w2t(a: torch.Tensor, dt: float, dim: int = 0) -> torch.Tensor:
+    """f(t) = int f(w) e^{-iwt} dw / 2pi = ``fft(a) / (N dt)``."""
+    n = a.shape[dim]
+    return torch.fft.fft(a, dim=dim) / (n * dt)
+
+
+def bose(w, T):
+    """Bose-Einstein occupation with the reference's edge conventions
+    (numpy, vectorised in ``w`` and ``T``)."""
+    w = np.asarray(w, dtype=np.result_type(float, w))
+    T = np.asarray(T, dtype=w.dtype)
+    t_zero = T == 0.0
+    b0 = np.where(w < 0.0, -1.0, 0.0)
+    T_safe = np.where(t_zero, 1.0, T)
+    with np.errstate(over="ignore"):
+        x = w / (U.KB * T_safe)
+        x_safe = np.where(w == 0.0, 1.0, x)
+        bT = np.where(w == 0.0, 0.0, 1.0 / np.expm1(x_safe))
+    return np.where(t_zero, b0, bT)
+
+
+def equ_spectrum(w, cut, T, classical: bool = False, zpmotion: bool = True):
+    """Equilibrium noise weight 2 hw (n_B(hw,T) + zp) with the strict
+    ``hw < cut`` band window; 2 kT in the classical limit and at w=0."""
+    w = np.asarray(w, dtype=np.result_type(float, w))
+    hw = U.HBAR * w
+    inside = hw < cut
+    if classical:
+        val = np.full_like(hw, 2.0 * U.KB) * T
+    else:
+        zp = 0.5 if zpmotion else 0.0
+        quantum = 2.0 * hw * (zp + bose(hw, T))
+        val = np.where(hw == 0.0, 2.0 * U.KB * T, quantum)
+    return np.where(inside, val, 0.0)
+
+
+def flinterp_np(x, xs, ys):
+    """Nearest-anchored linear interpolation of ``ys`` (n, ...) on grid
+    ``xs`` at the points ``x``; slope term (ys[i]-ys[j])/(xs[i]-xs[j])
+    as in the reference."""
+    xs = np.asarray(xs)
+    ys = np.asarray(ys)
+    x = np.atleast_1d(np.asarray(x, dtype=float))
+    n = xs.shape[0]
+    i = np.argmin(np.abs(xs[None, :] - x[:, None]), axis=1)
+    dd = x - xs[i]
+    j = np.clip(np.where(dd < 0, i - 1, i + 1), 0, n - 1)
+    denom = xs[i] - xs[j]
+    denom = np.where(denom == 0.0, 1.0, denom)
+    extra = (Ellipsis,) + (None,) * (ys.ndim - 1)
+    val = ys[i] + (dd / denom)[extra] * (ys[i] - ys[j])
+    edge = (i == 0) | (i == n - 1)
+    val[edge] = ys[i[edge]]
+    return val
+
+
+def hermitianize(a):
+    """0.5 (A + A^dagger), batched over leading axes (numpy)."""
+    a = np.asarray(a)
+    return 0.5 * (a + np.conjugate(np.swapaxes(a, -1, -2)))
+
+
+def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Row-wise ``a @ x[i]`` for a batch x (traj, n). Written as a
+    batched matrix product so every row is summed the same way for any
+    batch of two or more rows (a plain ``x @ a.T`` takes another BLAS
+    path below four rows), which keeps chunked ensembles bitwise equal
+    to unchunked ones on the CPU."""
+    return (a @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def rpadleft(hist: torch.Tensor, newest: torch.Tensor,
+             dim: int = 0) -> torch.Tensor:
+    """Push ``newest`` onto the front of a newest-first ring along
+    ``dim`` (the oldest entry drops off)."""
+    newest = newest.unsqueeze(dim)
+    if hist.shape[dim] == 1:
+        return newest
+    return torch.cat([newest, hist.narrow(dim, 0, hist.shape[dim] - 1)],
+                     dim=dim)

@@ -1,0 +1,161 @@
+"""Where the time of ``RunEnsemble`` goes on the card, at the primary
+junction.
+
+    python -m sclmd_tpu_torch.tools.profile_e2e --out DIR \\
+        [--ntraj 256 1024]
+
+Needs a CUDA card. For each trajectory count: one warm-up call, one
+untraced call timed on the host clock (``torch.cuda.synchronize`` inside
+the window), then one call under ``torch.profiler`` with a span around
+each layer (draws, noise synthesis, thermal init, the blocked
+integrator, K1, K2, the kappa files). From the trace it reports:
+
+* ``wall_s``: untraced and traced host wall time of the call;
+* ``device_busy_ms``: the union of all kernel, copy and memset intervals
+  on the card, and ``idle_share`` = 1 - busy / traced wall;
+* per span: host time (the span on the CPU) and device time (the union
+  of the device work launched inside it);
+* the ten device kernels with the most time.
+
+Writes ``summary.json`` and one Chrome trace per count to ``--out`` and
+prints the summary as JSON lines, after the card's name and power limit.
+"""
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import tempfile
+import time
+
+import torch
+
+SPANS = {
+    # label: ("module" or "module:Class", attribute) wrapped while the
+    # profiler runs
+    "draw_chunk": ("sclmd_tpu_torch.parallel.ensemble", "draw_chunk"),
+    "noise_synthesis": ("sclmd_tpu_torch.parallel.ensemble",
+                        "sample_noise_from_r"),
+    "thermal_init": ("sclmd_tpu_torch.parallel.ensemble", "thermal_init"),
+    "run_segment_blocked": ("sclmd_tpu_torch.parallel.ensemble",
+                            "run_segment_blocked"),
+    "K1_gle_block": ("sclmd_tpu_torch.md", "gle_block"),
+    "K2_block_corr": ("sclmd_tpu_torch.kernels.block_corr", "block_corr"),
+    "kappa_files": ("sclmd_tpu_torch.md:md", "_write_kappa_files"),
+}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union_ms(intervals):
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1000.0
+
+
+def _wrap_spans():
+    """Wrap each span's function in ``record_function``; returns undo."""
+    import importlib
+
+    undo = []
+    for label, (owner, attr) in SPANS.items():
+        mod, _, cls = owner.partition(":")
+        obj = importlib.import_module(mod)
+        obj = getattr(obj, cls) if cls else obj
+        fn = getattr(obj, attr)
+
+        def wrapped(*a, _fn=fn, _label="host:" + label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+
+        setattr(obj, attr, functools.wraps(fn)(wrapped))
+        undo.append((obj, attr, fn))
+    return lambda: [setattr(o, a, f) for o, a, f in undo]
+
+
+def summarise(trace_path, wall_traced):
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") in DEVICE_CATS]
+    busy = _union_ms(dev)
+    spans = {}
+    for label in SPANS:
+        name = "host:" + label
+        host = [e for e in events if e["name"] == name
+                and e.get("cat") == "user_annotation"]
+        gpu = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e["name"] == name and e.get("cat") == "gpu_user_annotation"]
+        spans[label] = {"calls": len(host),
+                        "host_ms": sum(e["dur"] for e in host) / 1000.0,
+                        "device_ms": _union_ms(gpu)}
+    per_kernel = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = per_kernel.setdefault(e["name"][:80], [0, 0.0])
+            k[0] += 1
+            k[1] += e["dur"] / 1000.0
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"device_busy_ms": busy,
+            "idle_share": 1.0 - busy / (wall_traced * 1000.0),
+            "spans": spans,
+            "top_kernels": [{"name": n, "calls": c, "ms": ms}
+                            for n, (c, ms) in top]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ntraj", type=int, nargs="+", default=[256, 1024])
+    ap.add_argument("--out", required=True,
+                    help="directory for the traces and summary.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_e2e: needs a CUDA device")
+    from sclmd_tpu_torch.tools.primary import BLOCK, NMD, primary_runner
+
+    os.makedirs(args.out, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    r = primary_runner(torch.float32, torch.device("cuda", 0),
+                       tempfile.mkdtemp())
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    summary = {"device": smi}
+    for n in args.ntraj:
+        r.RunEnsemble(n, nsteps=NMD, block=BLOCK)      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.RunEnsemble(n, nsteps=NMD, block=BLOCK)
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t0]
+        undo = _wrap_spans()
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.RunEnsemble(n, nsteps=NMD, block=BLOCK)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        finally:
+            undo()
+        path = os.path.join(args.out, f"trace_{n}.json")
+        prof.export_chrome_trace(path)
+        summary[n] = {"wall_s": {"untraced": walls[0], "traced": walls[1]},
+                      "traj_steps_per_s_untraced": n * NMD / walls[0],
+                      **summarise(path, walls[1])}
+        print(json.dumps({"ntraj": n, **summary[n]}), flush=True)
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

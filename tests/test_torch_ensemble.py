@@ -1,0 +1,167 @@
+"""The port's ensemble path (``fused_chunk``, ``md.RunEnsemble``) against
+the JAX package, and its counter-keyed draw schedule.
+
+JAX's threefry draws cannot be reproduced in torch, so the parity test
+injects the same numbers into both: the noise draws come from one numpy
+generator per trajectory (the JAX host sampler draws them from the same
+generator state), and the thermal-init phases are the uniforms JAX's
+``thermal_init`` draws from its key. CPU float64 throughout.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sclmd_tpu import baths as JB
+from sclmd_tpu import md as JMD
+from sclmd_tpu.ops import noise as JN
+
+from sclmd_tpu_torch import baths as TB
+from sclmd_tpu_torch import md as TMD
+from sclmd_tpu_torch.parallel import ensemble as TE
+
+torch.set_num_threads(2)
+
+NAT, NMD, DT, T, ML, NC = 4, 64, 0.4, 300.0, 9, 3
+NPH = 3 * NAT
+GWL = np.linspace(0.0, 0.6, 16)
+GAM = np.array([np.eye(NC) * 0.02 * np.exp(-(w / 0.3) ** 2) for w in GWL])
+SPECS = ((330.0, range(NC)), (270.0, range(NPH - NC, NPH)))
+
+
+def _dyn():
+    from sclmd_tpu_torch.models.harmonic import chain_dynmat
+    return chain_dynmat(NPH, 0.05).numpy()
+
+
+def _torch_runner(outdir, seed=7):
+    r = TMD.md(DT, NMD, T, axyz=[["C", 1.0 * i, 0.0, 0.0]
+                                 for i in range(NAT)],
+               dyn=_dyn(), dtype=torch.float64, seed=seed,
+               outdir=str(outdir), block=16)
+    for Tb, cats in SPECS:
+        r.AddBath(TB.phbath(Tb, cats, 0.3, 32, DT, NMD, ml=ML, gamma=GAM,
+                            gwl=GWL, dtype=torch.float64))
+    return r
+
+
+def test_fused_chunk_matches_jax():
+    """Injected draws: the port's fused_chunk (noise synthesis, thermal
+    init, blocked run, current reduction) equals the JAX pipeline per
+    trajectory to float64 rounding (rtol 1e-9, summation order)."""
+    ntraj, nsteps, block, skip = 3, 64, 16, 16
+    jbaths = [JB.phbath(Tb, cats, 0.3, 32, DT, NMD, ml=ML, gamma=GAM,
+                        gwl=GWL, dtype=jnp.float64) for Tb, cats in SPECS]
+    dyn, hw, U = JMD.set_dyn(_dyn(), dtype=jnp.float64)
+    keys = jax.random.split(jax.random.PRNGKey(3), ntraj)
+    us = np.stack([np.asarray(jax.random.uniform(k, (NPH,),
+                                                 dtype=jnp.float64))
+                   for k in keys])
+    seeds = [[100 * i + j for j in range(ntraj)] for i in range(len(SPECS))]
+
+    want = []
+    for j in range(ntraj):
+        bs = tuple(b.replace(noise=jnp.asarray(JN.sample_noise_np(
+            np.random.default_rng(seeds[i][j]), b.nevecs, b.nstd, DT, NMD)),
+            nevecs=None, nstd=None) for i, b in enumerate(jbaths))
+        sys_j = JMD.GLESystem(dyn=dyn, baths=bs, mask=jnp.ones(NPH), dt=DT,
+                              nph=NPH, ml=ML, nmd=NMD, unconstrained=True)
+        st = JMD.thermal_init(keys[j], sys_j, hw, U, T)
+        _, ys = JMD.run_segment_blocked(sys_j, st, nsteps, block=block)
+        want.append(np.asarray(ys["cur"])[skip:].sum(axis=0))
+
+    r = _torch_runner("unused")
+    facs = TE.bath_factors(r.baths, "cpu")
+    rs = [torch.as_tensor(np.stack([
+        np.random.default_rng(s).standard_normal(tuple(std.shape))
+        for s in seeds[i]])) for i, (_, std) in enumerate(facs)]
+    finals, sums, ok = TE.fused_chunk(
+        r._build_system(), facs, rs, torch.as_tensor(us), r.hw, r.U, T,
+        nsteps, 0, block, skip)
+    assert bool(ok) and sums.shape == (ntraj, 2)
+    np.testing.assert_allclose(sums.numpy(), np.stack(want), rtol=1e-9,
+                               atol=1e-14)
+
+
+def test_chunked_ensemble_is_bitwise_unchunked(tmp_path):
+    """Draws come from (seed, stream, trajectory)-keyed generators, so
+    chunks of 2 and 4 (ragged) reproduce the single batch exactly."""
+    means = {}
+    for chunk in (6, 2, 4):
+        d = tmp_path / f"c{chunk}"
+        d.mkdir()
+        means[chunk] = _torch_runner(d).RunEnsemble(6, chunk=chunk)
+    assert np.array_equal(means[2], means[4])
+    assert np.array_equal(means[2], means[6])
+    assert np.isfinite(means[2]).all() and means[2].shape == (6, 2)
+
+
+def test_draw_schedule_windows():
+    facs = TE.bath_factors(_torch_runner("unused").baths, "cpu")
+    rs, us = TE.draw_chunk(facs, 11, 0, 5, NPH, "cpu", torch.float64)
+    rs2, us2 = TE.draw_chunk(facs, 11, 3, 5, NPH, "cpu", torch.float64)
+    assert torch.equal(rs[1][3:], rs2[1]) and torch.equal(us[3:], us2)
+    assert not torch.equal(rs[0], rs[1])        # streams differ by bath
+    assert not torch.equal(TE.draw_chunk(facs, 12, 0, 5, None, "cpu",
+                                         torch.float64)[0][0], rs[0])
+
+
+def test_ensemble_states_windows():
+    r = _torch_runner("unused")
+    system = r._build_system()
+    full = TE.ensemble_states(system, 5, seed=4, hw=r.hw, evecs=r.U, T=T)
+    win = TE.ensemble_states(system, 5, seed=4, hw=r.hw, evecs=r.U, T=T,
+                             lo=1, hi=3)
+    assert torch.equal(full.p[1:3], win.p) and torch.equal(full.q[1:3], win.q)
+    zero = TE.ensemble_states(system, 5, lo=1, hi=3)
+    assert zero.p.shape == (2, NPH) and not zero.p.any()
+
+
+def test_run_ensemble_kappa_files_match_jax(tmp_path):
+    """Same kappa.T.bathI.runJ.dat names and columns as the JAX runner."""
+    dj, dt_ = tmp_path / "jax", tmp_path / "torch"
+    dj.mkdir()
+    dt_.mkdir()
+    rj = JMD.md(DT, NMD, T, axyz=[["C", 1.0 * i, 0.0, 0.0]
+                                  for i in range(NAT)],
+                dyn=_dyn(), dtype=jnp.float64, outdir=str(dj), block=16)
+    for Tb, cats in SPECS:
+        rj.AddBath(JB.phbath(Tb, cats, 0.3, 32, DT, NMD, ml=ML, gamma=GAM,
+                             gwl=GWL, dtype=jnp.float64))
+    mj = rj.RunEnsemble(3)
+    mt = _torch_runner(dt_).RunEnsemble(3)
+    assert mj.shape == mt.shape == (3, 2)
+    names_j = sorted(os.listdir(dj))
+    assert names_j == sorted(os.listdir(dt_))
+    assert len(names_j) == 6 and names_j[0] == "kappa.300.bath0.run0.dat"
+    for name in names_j:
+        fj = open(dj / name).read().split()
+        ft = open(dt_ / name).read().split()
+        assert len(fj) == len(ft) == 3 and fj[:2] == ft[:2]
+        float(ft[2])
+
+
+def test_auto_chunk_budget():
+    system = _torch_runner("unused")._build_system()
+    per = TE.estimate_traj_bytes(system, NMD, 16)
+    assert per > 0
+    assert TE.auto_chunk(system, 100, NMD, 16) == 100
+    assert TE.auto_chunk(system, 100, NMD, 16, budget_bytes=per * 40) == 32
+    assert TE.auto_chunk(system, 100, NMD, 16, budget_bytes=per * 40,
+                         depth=2) == 16
+
+
+def test_unported_branches_raise(tmp_path):
+    r = _torch_runner(tmp_path)
+    for kw in (dict(checkpoint=True), dict(npie=2)):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            r.RunEnsemble(2, **kw)
+    with pytest.raises(ValueError, match="block"):
+        r.RunEnsemble(2, nsteps=40)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        r.Run()

@@ -1,0 +1,114 @@
+"""The port's measurement tools on the CPU: the primary-junction set-up
+that chip_smoke.py and the sweeps share, the kernel's tap-major operand,
+and the trace summary of ``tools.profile_e2e``. No JAX."""
+
+import json
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from sclmd_tpu_torch import baths as TB
+from sclmd_tpu_torch import md as TMD
+from sclmd_tpu_torch.kernels import gle_block as K1
+from sclmd_tpu_torch.tools import primary as P
+from sclmd_tpu_torch.tools import profile_e2e as PE
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0),
+    ([(0, 1000), (2000, 3000)], 2.0),
+    ([(0, 2000), (1000, 3000)], 3.0),
+    ([(0, 3000), (1000, 2000), (2500, 4000)], 4.0),
+])
+def test_union_ms(intervals, want):
+    assert PE._union_ms(intervals) == pytest.approx(want)
+
+
+def test_summarise_synthetic_trace(tmp_path):
+    ev = [
+        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 0, "dur": 4000},
+        {"ph": "X", "cat": "kernel", "name": "k2", "ts": 3000, "dur": 2000},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "cp", "ts": 8000,
+         "dur": 1000},
+        {"ph": "X", "cat": "user_annotation", "name": "host:K1_gle_block",
+         "ts": 0, "dur": 500},
+        {"ph": "X", "cat": "gpu_user_annotation",
+         "name": "host:K1_gle_block", "ts": 0, "dur": 4000},
+        {"ph": "i", "cat": "kernel", "name": "instant", "ts": 0},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    s = PE.summarise(str(path), 0.010)
+    assert s["device_busy_ms"] == pytest.approx(6.0)
+    assert s["idle_share"] == pytest.approx(0.4)
+    assert s["spans"]["K1_gle_block"] == {"calls": 1, "host_ms": 0.5,
+                                          "device_ms": 4.0}
+    assert s["spans"]["kappa_files"]["calls"] == 0
+    assert [k["name"] for k in s["top_kernels"]] == ["k1", "k2"]
+
+
+def test_profile_spans_cover_run_ensemble(tmp_path):
+    """Every span of the profile wraps a function that RunEnsemble
+    really calls, and the wrappers come off again."""
+    nmd, dt, nat = 32, 0.4, 4
+    gwl = np.linspace(0.0, 0.6, 16)
+    gam = np.array([np.eye(3) * 0.02 * np.exp(-(w / 0.3) ** 2)
+                    for w in gwl])
+    from sclmd_tpu_torch.models.harmonic import chain_dynmat
+    r = TMD.md(dt, nmd, 300.0, axyz=[["C", 1.0 * i, 0.0, 0.0]
+                                     for i in range(nat)],
+               dyn=chain_dynmat(3 * nat, 0.05).numpy(), dtype=torch.float64,
+               outdir=str(tmp_path), block=8)
+    for Tb, cats in ((330.0, range(3)), (270.0, range(9, 12))):
+        r.AddBath(TB.phbath(Tb, cats, 0.3, 32, dt, nmd, ml=9, gamma=gam,
+                            gwl=gwl, dtype=torch.float64))
+    before = TMD.md._write_kappa_files, TMD.gle_block
+    undo = PE._wrap_spans()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            r.RunEnsemble(3, nsteps=16, block=8)
+    finally:
+        undo()
+    assert (TMD.md._write_kappa_files, TMD.gle_block) == before
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    spans = PE.summarise(path, 1.0)["spans"]
+    assert set(spans) == set(PE.SPANS)
+    assert all(v["calls"] > 0 for v in spans.values()), spans
+    assert spans["K1_gle_block"]["calls"] == 2
+    assert spans["K2_block_corr"]["calls"] == 4
+
+
+@pytest.mark.parametrize("nc,block", [(3, 4), (8, 2), (90, 3)])
+def test_tap_major_layout(nc, block):
+    kin = torch.randn((nc, (block + 1) * nc), dtype=torch.float64)
+    kt = K1.tap_major(kin, block)
+    ncs = -(-nc // 4) * 4
+    assert kt.shape == (block + 1, ncs, nc)
+    for k in range(block + 1):
+        assert torch.equal(kt[k, :nc, :], kin[:, k * nc:(k + 1) * nc].T)
+    assert not kt[:, nc:, :].any()
+
+
+def test_primary_block_operands_cpu():
+    """The primary junction at its full widths with two trajectories:
+    the chunk shapes RunEnsemble runs at 256 and 1024 trajectories under
+    the 40 GB budget, and one block of K1's plain twin on the operands
+    chip_smoke.py holds the kernel against."""
+    r = P.primary_runner(torch.float32, "cpu", tempfile.mkdtemp())
+    system = r._build_system()
+    assert P.chunk_sizes(system, 256) == [256]
+    assert P.chunk_sizes(system, 1024) == [512, 512]
+    gen = torch.Generator().manual_seed(1)
+    _, args, corr = P.block_operands(r, 2, 7, gen)
+    khat, hhat = corr[0]
+    assert khat.shape == (1025, P.NC, P.NC) and hhat.shape == (2, 1025, P.NC)
+    out = K1.gle_block(*args)
+    assert out.cur.shape == (2, P.BLOCK, 2) and out.etot.shape == (2, P.BLOCK)
+    for x in (out.p, out.q, out.cur, out.etot):
+        assert torch.isfinite(x).all()
