@@ -19,13 +19,33 @@ not 0 and no result line is printed):
    counters read around it;
 6. ``fused_chunk`` with 4 trajectories x 512 steps and injected draws,
    on the card (kernels) and on the CPU (plain twins, float64);
-7. kernel and twin times at each chunk size (CUDA events).
+7. kernel and twin times (CUDA events): K1 and K2 at each chunk size,
+   K6 at the primary shapes for one trajectory, K7's predictor at the
+   flagship shapes at each chunk size of phase 10;
+8. K6 ``conv_tails`` and K7 ``bath_force`` against their twins: K6 at
+   the primary shapes for one trajectory and a ragged batch of 37; K7
+   at the flagship shapes at each chunk size of phase 10, on a biased
+   electron bath, and on the primary phonon baths with K6's tails;
+9. the plain path through ``md.Run`` on the primary junction (no block,
+   nmd 2048, runs 0 and 1 in two segments each, power spectra on),
+   after a warm-up run, with K6/K7 launch counters read around it;
+10. ``RunEnsemble`` on the plain path (no block) on the harmonic
+   flagship at 128 and 1024 trajectories, nsteps 1024, after a warm-up
+   of each, with K7's launch counter read around it; the same calls on
+   a runner with the two leads' temperatures swapped give the heat
+   currents' sign from common random numbers;
+11. 512 plain steps of the ``md.Run`` path (primary, one trajectory) and
+   of the flagship ensemble chunk (4 trajectories), injected draws, on
+   the card (kernels) and on the CPU (twins, float64).
 
-The workload is the primary junction of bench.py
-(``sclmd_tpu_torch.tools.primary``): a 100-atom harmonic chain (nph 300),
+The workloads are the primary junction of bench.py
+(``sclmd_tpu_torch.tools.primary``: a 100-atom harmonic chain, nph 300,
 two non-local phonon baths of 90 DOFs with 1000 memory taps, nmd 2048,
-dt 0.25/0.658, T 300 K +- 5 %. The line before the last is the card's
-name and power limit; the last line is the result JSON.
+dt 0.25/0.658, T 300 K +- 5 %) and its harmonic flagship
+(``sclmd_tpu_torch.tools.flagship``: the 201-atom C/H junction, nph 603,
+two electron baths of 150 DOFs, 120 DOFs fixed, nmd 1024). The line
+before the last is the card's name and power limit; the last line is
+the result JSON.
 """
 
 import json
@@ -45,6 +65,7 @@ import torch
 # individual heat-current samples pass through zero.
 RTOL = 1e-4
 SIZES = (256, 1024)     # RunEnsemble trajectory counts of phase 5
+FLAG_SIZES = (128, 1024)  # plain-path RunEnsemble counts of phase 10
 
 
 def rel_err(a, b):
@@ -77,6 +98,7 @@ def main():
     import sclmd_tpu_torch
     from sclmd_tpu_torch.kernels import block_corr as K2
     from sclmd_tpu_torch.kernels import build
+    from sclmd_tpu_torch.kernels import conv_tails as K6
     from sclmd_tpu_torch.kernels import gle_block as K1
     from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
     from sclmd_tpu_torch.tools.primary import (BLOCK, NC, NMD, NPH, T,
@@ -193,7 +215,9 @@ def main():
                       "q_rel": q_rel, "rtol": RTOL}), flush=True)
     assert max(cur_rel, p_rel, q_rel) <= RTOL, (sg, sc)
 
-    # 7. kernel and twin times at each chunk shape (phase 4's operands)
+    # 7. kernel and twin times at each chunk shape (phase 4's operands;
+    # K6 and K7 at the operands phase 8 checks)
+    plain_ops = plain_step_operands(dev)
     times = {}
     for n, (args, khat, hhat) in operands.items():
         times[n] = {
@@ -203,10 +227,29 @@ def main():
                 lambda: K2.block_corr_freq_cuda(khat, hhat), 20),
             "block_corr_freq_plain": cuda_ms(
                 lambda: K2.block_corr_freq_plain(khat, hhat), 20)}
+    times["conv_tails"] = {
+        n: {"kernel": cuda_ms(lambda: k6(head), 50),
+            "plain": cuda_ms(lambda: K6.conv_tails_plain(ring, head, baths),
+                             20)}
+        for n, (ring, head, baths, k6) in plain_ops["k6"].items()}
+    times["bath_force_pred"] = {
+        n: {"kernel": cuda_ms(lambda: pred_call(c, c.force), 50),
+            "plain": cuda_ms(lambda: pred_call(c, None), 20)}
+        for n, c in plain_ops["k7_flagship"].items()}
     print(json.dumps({"phase": 7, "ms": times}), flush=True)
+
+    # 8. K6 and K7 against their twins
+    k6_abs, k7_abs = check_plain_kernels(plain_ops)
+
+    # 9. md.Run, 10. RunEnsemble on the plain path, 11. card against CPU
+    run_launches = phase_run(dev)
+    ens_launches = phase_flagship(dev)
+    phase_card_vs_cpu(dev)
 
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
+    k6_t = times["conv_tails"][1]
+    k7_t = times["bath_force_pred"][min(times["bath_force_pred"])]
     kernels = [
         {"name": "gle_block", "route": "cuda",
          "source": "sclmd_tpu_torch/csrc/gle_block.cu",
@@ -218,12 +261,283 @@ def main():
          "replaces": "sclmd_tpu/baths.py:593",
          "launches": launches["block_corr_freq"], "max_abs_err": k2_abs,
          "ms": t["block_corr_freq"], "plain_ms": t["block_corr_freq_plain"]},
+        {"name": "conv_tails", "route": "cuda",
+         "source": "sclmd_tpu_torch/csrc/conv_tails.cu",
+         "replaces": "sclmd_tpu/baths.py:548",
+         "launches": run_launches["conv_tails"], "max_abs_err": k6_abs,
+         "ms": k6_t["kernel"], "plain_ms": k6_t["plain"]},
+        {"name": "bath_force", "route": "cuda",
+         "source": "sclmd_tpu_torch/csrc/bath_force.cu",
+         "replaces": "sclmd_tpu/baths.py:559",
+         "launches": run_launches["bath_force"] + ens_launches["bath_force"],
+         "max_abs_err": k7_abs, "ms": k7_t["kernel"],
+         "plain_ms": k7_t["plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# --- the plain GLE step: K6 and K7 -------------------------------------------
+class K7Case:
+    """K7's operands for one evaluation of every stage: a state, a
+    history ring, noise on the baths, K6 tails where a bath has them."""
+
+    def __init__(self, baths, ntraj, nph, nmd, dt, dev, seed):
+        from sclmd_tpu_torch.kernels import bath_force as K7
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def rnd(*shape, scale=1.0):
+            return scale * torch.randn(shape, device=dev, generator=gen)
+
+        self.baths = [b.replace(noise=rnd(ntraj, nmd, b.nc, scale=0.01))
+                      for b in baths]
+        self.p, self.q, self.x = (rnd(ntraj, nph, scale=0.05)
+                                  for _ in range(3))
+        self.pf, self.pf2 = rnd(ntraj, nph), rnd(ntraj, nph)
+        self.mlr = max(b.ml for b in baths)
+        self.ring = rnd(ntraj, self.mlr, nph, scale=0.05)
+        self.tails = [rnd(ntraj, b.nc, 2, scale=1e-3) if b.ml > 2 else None
+                      for b in baths]
+        self.mask = torch.ones(nph, device=dev)
+        self.mask[: nph // 10] = 0.0
+        self.cur = torch.zeros((ntraj, len(baths)), device=dev)
+        self.etot = torch.zeros((ntraj,), device=dev)
+        self.dt, self.nmd, self.ntraj, self.nph = dt, nmd, ntraj, nph
+        self.force = K7.BathForce(self.baths, ntraj, nph, nmd, dt, dev)
+
+
+def pred_call(c, force):
+    """One predictor evaluation, by the kernel (``force``) or the twin."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    head, push = 0, (c.mlr - 1) % c.mlr
+    if force is not None:
+        return force.pred(c.p, c.q, c.pf, c.ring, head, push, c.tails, 3,
+                          c.cur, c.etot)
+    return K7.pred_plain(c.p, c.q, c.pf, c.ring, head, push, c.force.ops,
+                         c.tails, 3, c.dt, c.cur, c.etot)
+
+
+def k7_outputs(c, kernel: bool):
+    """Every output of the three stages, by the kernel or the twins."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    ring0 = c.ring.clone()
+    fbs = [torch.zeros((c.ntraj, b.nc), device=c.p.device) for b in c.baths]
+    f_out = torch.zeros_like(c.p)
+    head, push = 0, (c.mlr - 1) % c.mlr
+    if kernel:
+        ph, qt = c.force.pred(c.p, c.q, c.pf, c.ring, head, push, c.tails,
+                              3, c.cur, c.etot, fbs)
+        pc, _ = c.force.corr(c.x, qt, c.pf2, c.p, ph, c.tails, 4)
+        pl, ql = c.force.corr(c.x, qt, c.pf2, c.p, ph, c.tails, 4,
+                              mask=c.mask, f_out=f_out)
+    else:
+        args = (c.force.ops, c.tails)
+        ph, qt = K7.pred_plain(c.p, c.q, c.pf, c.ring, head, push, *args,
+                               3, c.dt, c.cur, c.etot, fbs)
+        pc, _ = K7.corr_plain(c.x, qt, c.pf2, c.p, ph, *args, 4, c.dt)
+        pl, ql = K7.corr_plain(c.x, qt, c.pf2, c.p, ph, *args, 4, c.dt,
+                               c.mask, f_out)
+    out = dict(pthalf=ph, qtt=qt, p_corr=pc, p_last=pl, q_last=ql,
+               f=f_out, cur=c.cur.clone(), etot=c.etot.clone(),
+               pushed=c.ring[:, push].clone(),
+               **{f"fb{i}": fb for i, fb in enumerate(fbs)})
+    c.ring.copy_(ring0)
+    return out
+
+
+def plain_step_operands(dev):
+    """K6's and K7's operands at the shapes the plain path gives them."""
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools.primary import DT, NMD, NPH, primary_baths
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pb = primary_baths(torch.float32, dev)
+    k6 = {}
+    for n, head in ((1, 377), (37, 5)):
+        ring = 0.05 * torch.randn((n, pb[0].ml, NPH), device=dev,
+                                  generator=gen)
+        k6[n] = (ring, head, pb, K6.ConvTailsCuda(ring, pb))
+    fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp())
+    fsys = fr._build_system()
+    sizes = sorted({n for ntraj in FLAG_SIZES
+                    for n in F.chunk_sizes(fsys, ntraj)})
+    k7 = {n: K7Case(fr.baths, n, fr.nph, F.NMD, F.DT, dev, n)
+          for n in sizes}
+    # a biased electron bath pair: random wind, renormalisation, Berry
+    rng = np.random.default_rng(3)
+    from sclmd_tpu_torch import baths as B
+    biased = [B.ebath(b.cids, b.T, F.DT, F.NMD, wmax=1.0, bias=0.1,
+                      efric=b.efric.double().cpu().numpy(),
+                      exim=0.01 * rng.normal(size=(b.nc, b.nc)),
+                      zeta1=0.01 * rng.normal(size=(b.nc, b.nc)),
+                      zeta2=0.01 * rng.normal(size=(b.nc, b.nc)),
+                      dtype=torch.float32, device=dev, factorize=False)
+              for b in fr.baths]
+    return {"k6": k6, "k7_flagship": k7,
+            "k7_biased": K7Case(biased, 128, fr.nph, F.NMD, F.DT, dev, 9),
+            "k7_phonon": K7Case(pb, 37, NPH, NMD, DT, dev, 10)}
+
+
+def check_plain_kernels(ops):
+    """Phase 8: K6 and K7 against their twins on the same tensors."""
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+
+    k6_abs = k7_abs = 0.0
+    for n, (ring, head, baths, k6) in ops["k6"].items():
+        got = [t.clone() for t in k6(head)]
+        want = K6.conv_tails_plain(ring, head, baths)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        k6_rel = max(e[0] for e in errs)
+        k6_abs = max(k6_abs, max(e[1] for e in errs))
+        print(json.dumps({"phase": 8, "kernel": "conv_tails", "ntraj": n,
+                          "rel_err": k6_rel, "rtol": RTOL}), flush=True)
+        assert k6_rel <= RTOL, f"K6 disagrees with its twin: {errs}"
+    cases = [(f"flagship_{n}", c) for n, c in ops["k7_flagship"].items()]
+    cases += [("biased_128", ops["k7_biased"]),
+              ("phonon_tails_37", ops["k7_phonon"])]
+    for name, c in cases:
+        got, want = k7_outputs(c, True), k7_outputs(c, False)
+        errs = {k: rel_err(got[k], want[k]) for k in want}
+        k7_rel = max(e[0] for e in errs.values())
+        k7_abs = max(k7_abs, max(e[1] for e in errs.values()))
+        print(json.dumps({"phase": 8, "kernel": "bath_force", "case": name,
+                          "tile": c.force.args.tt, "rel_err": k7_rel,
+                          "rtol": RTOL}), flush=True)
+        assert k7_rel <= RTOL, f"K7 disagrees with its twin: {errs}"
+    return k6_abs, k7_abs
+
+
+def phase_run(dev):
+    """Phase 9: md.Run on the primary junction through the plain step."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+    from sclmd_tpu_torch.tools.primary import NMD, primary_runner
+
+    def runner(outdir, nstop):
+        r = primary_runner(torch.float32, dev, outdir)
+        r.block, r.nstart, r.nstop, r.npie = None, 0, nstop, 2
+        r.CalPowerSpec()
+        return r
+
+    runner(tempfile.mkdtemp(), 1).Run()          # warm-up
+    outdir = tempfile.mkdtemp()
+    r = runner(outdir, 2)
+    torch.cuda.synchronize()
+    K6.reset_count()
+    K7.reset_count()
+    t0 = time.perf_counter()
+    r.Run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"conv_tails": K6.launches, "bath_force": K7.launches}
+    nsteps = 2 * NMD
+    assert counts == {"conv_tails": nsteps, "bath_force": 3 * nsteps}, counts
+    names = set(os.listdir(outdir))
+    for j in (0, 1):
+        want = {f"MD{j}.npz", f"power.300.run{j}.dat"} | {
+            f"kappa.300.bath{i}.run{j}.dat" for i in (0, 1)}
+        assert want <= names, (want - names)
+        ck = np.load(os.path.join(outdir, f"MD{j}.npz"))
+        assert int(ck["t"][0]) == (j + 1) * NMD
+        for k in ("p", "q", "phis", "etot", "cur", "ps", "power"):
+            assert np.isfinite(ck[k]).all(), (j, k)
+        assert ck["ps"].shape == (NMD, 300) and ck["cur"].shape == (NMD, 2)
+    print(json.dumps({"phase": 9, "launches": counts, "s": wall,
+                      "steps_per_s": nsteps / wall}), flush=True)
+    return counts
+
+
+def phase_flagship(dev):
+    """Phase 10: RunEnsemble on the plain path on the flagship."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.tools import flagship as F
+
+    hot, cold = F.T * (1 + F.DELTA / 2), F.T * (1 - F.DELTA / 2)
+    runs = {}
+    for temps in ((hot, cold), (cold, hot)):
+        r = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp(),
+                              temps=temps)
+        for ntraj in FLAG_SIZES:          # warm-up of every chunk shape
+            r.RunEnsemble(ntraj, nsteps=F.NMD, block=None)
+        torch.cuda.synchronize()
+        K7.reset_count()
+        e2e, means = {}, {}
+        for ntraj in FLAG_SIZES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means[ntraj] = r.RunEnsemble(ntraj, nsteps=F.NMD, block=None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert means[ntraj].shape == (ntraj, 2)
+            assert np.isfinite(means[ntraj]).all()
+            e2e[ntraj] = {"s": wall,
+                          "traj_steps_per_s": ntraj * F.NMD / wall,
+                          "J_left": float(means[ntraj][:, 0].mean()),
+                          "J_right": float(means[ntraj][:, 1].mean())}
+        runs[temps] = (e2e, means, K7.launches)
+    e2e, fwd, launches = runs[(hot, cold)]
+    rev = runs[(cold, hot)][1]
+    assert launches == 3 * F.NMD * sum(
+        len(F.chunk_sizes(r._build_system(), n)) for n in FLAG_SIZES), \
+        launches
+    # common random numbers: both runners draw the same numbers, so the
+    # half-difference keeps the current driven by the temperature
+    # difference and cancels the fluctuations the two runs share
+    n = max(FLAG_SIZES)
+    j = (fwd[n] - rev[n]) / 2
+    jl, jr = float(j[:, 0].mean()), float(j[:, 1].mean())
+    sem = (j.std(axis=0) / np.sqrt(n)).tolist()
+    print(json.dumps({"phase": 10, "launches": {"bath_force": launches},
+                      "e2e": e2e, "J_left": jl, "J_right": jr,
+                      "J_sem": sem}), flush=True)
+    assert jl > 0 > jr, (jl, jr, sem)
+    return {"bath_force": launches}
+
+
+def phase_card_vs_cpu(dev):
+    """Phase 11: 512 plain steps on the card and on the CPU (float64)."""
+    from sclmd_tpu_torch.md import run_segment, thermal_init
+    from sclmd_tpu_torch.ops.noise import sample_noise_from_r
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools.primary import DT, NMD, NPH, T, primary_runner
+
+    rng = np.random.default_rng(12)
+    out = {"run": [], "flagship": []}
+    r0 = primary_runner(torch.float64, "cpu", tempfile.mkdtemp())
+    rs_run = [rng.standard_normal((1,) + np.shape(b.nstd)) for b in r0.baths]
+    u_run = rng.uniform(size=(1, NPH))
+    f0 = F.flagship_runner(torch.float64, "cpu", tempfile.mkdtemp())
+    rs_flag = [rng.standard_normal((4,) + np.shape(b.nstd))
+               for b in f0.baths]
+    u_flag = rng.uniform(size=(4, f0.nph))
+    for dtype, device in ((torch.float32, dev), (torch.float64, "cpu")):
+        def tens(x):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+        r = primary_runner(dtype, device, tempfile.mkdtemp())
+        facs = bath_factors(r.baths, device)
+        system = r._build_system().replace(baths=tuple(
+            b.replace(noise=sample_noise_from_r(tens(x), ev, sd, DT, NMD))
+            for b, (ev, sd), x in zip(r.baths, facs, rs_run)))
+        st = thermal_init(tens(u_run), system, r.hw, r.U, T)
+        fin, ys = run_segment(system, st, 512, t0=0)
+        out["run"].append((fin.p, fin.q, ys["cur"], ys["etot"]))
+        fr = F.flagship_runner(dtype, device, tempfile.mkdtemp())
+        fin, sums, ok = fused_chunk(
+            fr._build_system(), bath_factors(fr.baths, device),
+            [tens(x) for x in rs_flag], tens(u_flag), fr.hw, fr.U, F.T,
+            512, 0, None, 128)
+        assert bool(ok)
+        out["flagship"].append((fin.p, fin.q, sums))
+    errs = {name: max(rel_err(a, b)[0] for a, b in zip(*pair))
+            for name, pair in out.items()}
+    print(json.dumps({"phase": 11, "rel_err": errs, "rtol": RTOL}),
+          flush=True)
+    assert max(errs.values()) <= RTOL, errs
 
 
 if __name__ == "__main__":

@@ -1,14 +1,18 @@
-"""Phonon baths (counterpart of ``sclmd_tpu.baths``, ``PhBath`` only).
+"""Electron and phonon baths (counterpart of ``sclmd_tpu.baths``).
 
 A bath is a small dataclass: host numpy float64 setup data (Gamma
 table, PSD noise factors) plus torch tensors for what the hot loop
-reads (the memory kernel, and a (traj, nmd, nc) noise batch once
-attached). The factory ``phbath`` runs entirely on the host in numpy,
-as in the JAX package.
+reads (the memory kernel or the friction matrices, and a (traj, nmd,
+nc) noise batch once attached). The factories ``ebath`` and ``phbath``
+run entirely on the host in numpy, as in the JAX package.
 
-Not ported yet (ROADMAP queue 1): ``EBath``/``ebath``, and the
-K00/K01/V01 lead-block mode of ``phbath`` that needs the decimation
-self-energy.
+The per-step force rules of the plain integrator (``step_plan``,
+``force_pred``, ``force_corr``) take (traj, nc) rows and are the plain
+torch forms of kernels K6 (``kernels.conv_tails``) and K7
+(``kernels.bath_force``).
+
+Not ported yet (ROADMAP queue 1): the K00/K01/V01 lead-block mode of
+``phbath`` that needs the decimation self-energy.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch.ops import noise as NZ
-from sclmd_tpu_torch.ops.functions import flinterp_np
+from sclmd_tpu_torch.ops.functions import (antisymmetrize, chkShape,
+                                           equ_spectrum, flinterp_np,
+                                           matvec, symmetrize)
 
 
 def _contig_start(cats_np: np.ndarray):
@@ -33,6 +39,192 @@ def _contig_start(cats_np: np.ndarray):
     if np.array_equal(cats_np, np.arange(c0, c0 + len(cats_np))):
         return c0
     return None
+
+
+def _cols(cs, cids, device):
+    """Column indexer on the full-DOF axis: a slice when the bath's DOFs
+    are the contiguous range [cs, cs+nc), else an index tensor."""
+    if cs is not None:
+        return slice(cs, cs + len(cids))
+    return torch.as_tensor(cids, dtype=torch.long, device=device)
+
+
+@dataclass
+class EBath:
+    """Markovian electron bath with the current-induced forces: friction
+    ``-efric v`` plus, when ``bias_terms``, the wind/renormalisation
+    ``bias (exim - zeta1) q`` and Berry ``-bias zeta2 v`` forces."""
+
+    cids: np.ndarray                  # (nc,) int64 DOF indices
+    efric: torch.Tensor               # (nc, nc) symmetric friction
+    exim: torch.Tensor                # (nc, nc) antisymmetric
+    exip: torch.Tensor                # (nc, nc) symmetric
+    zeta1: torch.Tensor               # (nc, nc) symmetric renormalisation
+    zeta2: torch.Tensor               # (nc, nc) antisymmetric Berry
+    T: float
+    bias: float                       # mu_L - mu_R
+    noise: Optional[torch.Tensor]     # (traj, nmd, nc) once attached
+    dt: float
+    nmd: int
+    wmax: Optional[float] = None
+    nw: Optional[int] = None
+    classical: bool = False
+    zpmotion: bool = True
+    # the wind/Berry/renormalisation matrices were supplied: the force
+    # rule applies them (else it is the friction alone)
+    bias_terms: bool = False
+    nevecs: Optional[np.ndarray] = None
+    nstd: Optional[np.ndarray] = None
+    cs: Optional[int] = None
+
+    @property
+    def nc(self) -> int:
+        return int(self.cids.shape[0])
+
+    @property
+    def ml(self) -> int:
+        return 1
+
+    @property
+    def kernel(self) -> torch.Tensor:
+        return self.efric[None]
+
+    @property
+    def cols(self):
+        return _cols(self.cs, self.cids, self.efric.device)
+
+    @property
+    def wl(self):
+        if self.wmax is None or self.nw is None:
+            return None
+        return np.array([self.wmax * i / self.nw for i in range(self.nw)])
+
+    def replace(self, **changes) -> "EBath":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "EBath":
+        mats = {k: getattr(self, k).to(device)
+                for k in ("efric", "exim", "exip", "zeta1", "zeta2")}
+        return self.replace(
+            noise=None if self.noise is None else self.noise.to(device),
+            **mats)
+
+    def prepare_noise(self) -> "EBath":
+        """Factorise the noise PSD on the host in float64."""
+        wl = 2.0 * np.pi / self.dt / self.nmd * np.arange(self.nmd // 2 + 1)
+        f64 = {k: getattr(self, k).double().cpu().numpy()
+               for k in ("efric", "exim", "exip")}
+        psd = NZ.electron_psd(wl, f64["efric"], f64["exim"], f64["exip"],
+                              float(self.bias), float(self.T), self.wmax,
+                              self.classical, self.zpmotion,
+                              delta=self.dt * self.nmd)
+        evec, std = NZ.noise_factors(psd, dtype=self.efric.dtype)
+        return self.replace(nevecs=evec, nstd=std)
+
+    def SetT(self, T) -> "EBath":
+        """The bath at temperature ``T``, noise factors refreshed."""
+        return self.replace(T=float(T)).prepare_noise()
+
+    def setbias(self, bias) -> "EBath":
+        """The bath at ``bias``, noise factors refreshed."""
+        return self.replace(bias=float(bias)).prepare_noise()
+
+    def SetMDsteps(self, dt, nmd) -> "EBath":
+        """The bath on another MD grid, noise factors refreshed."""
+        return self.replace(dt=float(dt), nmd=int(nmd)).prepare_noise()
+
+    # --- per-step interface shared with PhBath (the plain step) ---------
+    def step_plan(self, old_c):
+        return None
+
+    def _markov_force(self, noise_row, v_c, q_c):
+        f = noise_row - matvec(self.efric, v_c)
+        if self.bias_terms:
+            f = f + self.bias * matvec(self.exim - self.zeta1, q_c) \
+                - self.bias * matvec(self.zeta2, v_c)
+        return f
+
+    def force_pred(self, noise_row, v_c, q_c, old_c, plan):
+        return self._markov_force(noise_row, v_c, q_c)
+
+    def force_corr(self, noise_row, v_c, q_c, p_c, plan):
+        return self._markov_force(noise_row, v_c, q_c)
+
+
+def ebath(cats, T, dt, nmd, wmax=None, nw=None, bias=0.0,
+          efric=None, exim=None, exip=None, zeta1=None, zeta2=None,
+          classical: bool = False, zpmotion: bool = True,
+          dtype=torch.float32, device=None,
+          factorize: bool = True) -> EBath:
+    """Build an electron bath, as ``sclmd_tpu.baths.ebath``: efric, exip
+    and zeta1 are symmetrised, exim and zeta2 antisymmetrised, shapes
+    checked against ``cats``.
+
+    Noise factors: an unbiased bath with nc >= 8 has S(w) = a(w) efric,
+    so ONE eigh of efric gives them (eigenvectors kept as a zero-stride
+    broadcast view, one matrix in memory); otherwise the full
+    ``electron_psd`` batch is factorised per frequency."""
+    cats_np = np.asarray(cats, dtype=np.int64)
+    nc = int(cats_np.shape[0])
+    if efric is None:
+        raise ValueError("ebath: efric is required")
+    if chkShape(efric) != nc:
+        raise ValueError(f"ebath: efric shape {chkShape(efric)} != "
+                         f"len(cats) {nc}")
+    for name, m in (("exim", exim), ("exip", exip),
+                    ("zeta1", zeta1), ("zeta2", zeta2)):
+        if m is not None and chkShape(m) != nc:
+            raise ValueError(f"ebath: {name} has wrong dimension")
+
+    def f64(m):
+        return np.asarray(m, np.float64)
+
+    z = np.zeros((nc, nc))
+    efric_np = symmetrize(f64(efric))
+    exim_np = antisymmetrize(f64(exim)) if exim is not None else z
+    exip_np = symmetrize(f64(exip)) if exip is not None else z
+    zeta1_np = symmetrize(f64(zeta1)) if zeta1 is not None else z
+    zeta2_np = antisymmetrize(f64(zeta2)) if zeta2 is not None else z
+
+    bias_active = (exim is not None or zeta1 is not None
+                   or zeta2 is not None or exip is not None) \
+        and float(bias) != 0.0
+    nevecs = nstd = None
+    if factorize:
+        wlh = 2.0 * np.pi / dt / nmd * np.arange(int(nmd) // 2 + 1)
+        if not bias_active and nc >= 8:
+            aw = float(dt) * int(nmd) * equ_spectrum(
+                wlh, wmax, float(T), classical, zpmotion)
+            lam0, evec0 = np.linalg.eigh(efric_np)
+            std = np.sqrt(np.clip(aw, 0.0, None)[:, None]
+                          * np.clip(lam0, 0.0, None)[None, :])
+            f64_out = NZ._is_f64(dtype)
+            nevecs = np.broadcast_to(
+                evec0.astype(np.complex128 if f64_out else np.complex64),
+                (len(wlh), nc, nc))
+            nstd = std.astype(np.float64 if f64_out else np.float32)
+        else:
+            psd = NZ.electron_psd(wlh, efric_np, exim_np, exip_np,
+                                  float(bias), float(T), wmax,
+                                  classical, zpmotion,
+                                  delta=float(dt) * int(nmd))
+            nevecs, nstd = NZ.noise_factors(psd, dtype=dtype)
+
+    def dev(m):
+        return torch.as_tensor(m, dtype=dtype, device=device)
+
+    return EBath(
+        cids=cats_np, cs=_contig_start(cats_np),
+        efric=dev(efric_np), exim=dev(exim_np), exip=dev(exip_np),
+        zeta1=dev(zeta1_np), zeta2=dev(zeta2_np),
+        T=float(T), bias=float(bias), noise=None,
+        dt=float(dt), nmd=int(nmd),
+        wmax=None if wmax is None else float(wmax),
+        nw=None if nw is None else int(nw),
+        classical=bool(classical), zpmotion=bool(zpmotion),
+        bias_terms=(exim is not None or zeta1 is not None
+                    or zeta2 is not None),
+        nevecs=nevecs, nstd=nstd)
 
 
 def gamt(tl, wl, gwl, gam, eta_ad: float = 0.0) -> np.ndarray:
@@ -109,12 +301,7 @@ class PhBath:
 
     @property
     def cols(self):
-        """Column indexer on the full-DOF axis: a slice when the bath's
-        DOFs are contiguous, else an index tensor on the kernel's device."""
-        if self.cs is not None:
-            return slice(self.cs, self.cs + self.nc)
-        return torch.as_tensor(self.cids, dtype=torch.long,
-                               device=self.kernel.device)
+        return _cols(self.cs, self.cids, self.kernel.device)
 
     @property
     def wl(self):
@@ -131,6 +318,40 @@ class PhBath:
     @property
     def kernel_im(self) -> torch.Tensor:
         return _kernel_im(self.kernel)
+
+    # --- the plain step (md.run_segment) --------------------------------
+    # The step evaluates the bath force three times with histories that
+    # share all but the newest one or two taps, so both shared tails
+    #   tail_pred = sum_{r=2}^{ml-1} K[r] old[r-1]
+    #   tail_corr = sum_{r=2}^{ml-1} K[r] old[r-2]
+    # come out of one read of the kernel per step (kernel K6 on the card).
+    def step_plan(self, old_c):
+        """Shared tails (traj, nc, 2) from the pre-push history ``old_c``
+        (traj, ml, nc), newest first; None when ml <= 2."""
+        if self.ml <= 2:
+            return None
+        nc, ml = self.nc, self.ml
+        B = torch.stack([old_c[:, 1:ml - 1], old_c[:, 0:ml - 2]], dim=3)
+        return self.kernel_im[:, 2 * nc:] @ B.reshape(-1, (ml - 2) * nc, 2)
+
+    def force_pred(self, noise_row, v_c, q_c, old_c, plan):
+        """Predictor bath force: history [v, old[0], old[1], ...]."""
+        if self.ml == 1:
+            return noise_row - matvec(self.kernel[0], v_c)
+        conv = matvec(self.kernel[0], v_c) + matvec(self.kernel[1],
+                                                    old_c[:, 0])
+        if plan is not None:
+            conv = conv + plan[..., 0]
+        return noise_row - conv * self.dt
+
+    def force_corr(self, noise_row, v_c, q_c, p_c, plan):
+        """Corrector bath force: history [v, p, old[0], ...]."""
+        if self.ml == 1:
+            return noise_row - matvec(self.kernel[0], v_c)
+        conv = matvec(self.kernel[0], v_c) + matvec(self.kernel[1], p_c)
+        if plan is not None:
+            conv = conv + plan[..., 1]
+        return noise_row - conv * self.dt
 
     # --- blocked-convolution fast path (md.run_segment_blocked) -----------
     # Per B-step block the convolution splits into (a) a pre-block part

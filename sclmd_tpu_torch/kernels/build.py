@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``sclmd_tpu_torch/csrc/*.cu`` file has a plain C interface and is
-compiled by ``nvcc`` into ONE shared library for Hopper (``sm_90a``),
-loaded with ``ctypes``. The build runs at first use, never at import,
+Every ``sclmd_tpu_torch/csrc/*.cu`` file has a plain C interface. Each
+is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all started
+together, and the objects are linked into ONE shared library loaded
+with ``ctypes``. The build runs at first use, never at import,
 into ``sclmd_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
 sources and flags, so an unchanged tree reuses its library and an edited
 one rebuilds. The compiler's ``-Xptxas -v`` report (registers, shared
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = None
@@ -61,20 +62,32 @@ def build() -> str:
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cu = [p for p in sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    os.replace(tmp, out)          # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(p)[:-3] + ".o")
+                for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, p]
+                for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [" ".join(c) + "\n" + pr.communicate()[0]
+                for c, pr in zip(cmds, procs)]
+        log = "".join(logs)
+        if any(pr.returncode != 0 for pr in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+        build_seconds = time.perf_counter() - t0
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, out)      # atomic: a concurrent loader sees all or nothing
     return out
 
 
@@ -91,6 +104,10 @@ def load() -> ctypes.CDLL:
     lib.gle_block_f32.restype = ci
     lib.gle_block_smem_bytes.argtypes = [ci, ci, ci, ci]
     lib.gle_block_smem_bytes.restype = ci
+    lib.conv_tails_f32.argtypes = [vp, vp]
+    lib.conv_tails_f32.restype = ci
+    lib.bath_force_f32.argtypes = [vp, vp]
+    lib.bath_force_f32.restype = ci
     _lib = lib
     return lib
 

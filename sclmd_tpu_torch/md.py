@@ -1,11 +1,20 @@
 """GLE molecular dynamics engine (counterpart of ``sclmd_tpu.md``).
 
 The trajectory batch is an explicit leading dimension everywhere: an
-``MDState`` holds (traj, nph) velocities and displacements, and the
-blocked integrator ``run_segment_blocked`` advances the whole batch.
-Per block of ``block`` steps it calls kernel K2 (``block_corr``) once
-per bath for the pre-block memory-kernel tails, then kernel K1
-(``gle_block``) for the block's steps.
+``MDState`` holds (traj, nph) velocities and displacements, and both
+integrators advance the whole batch:
+
+* ``run_segment``, the plain step (any mix of electron, local and
+  memory-kernel phonon baths): per step kernel K6 (``conv_tails``) for
+  the memory-kernel tails shared by the step's three bath-force
+  evaluations, and kernel K7 (``bath_force``) for each evaluation; the
+  potential force ``-dyn q`` is a ``torch.matmul``. The velocity history
+  is a circular ring with a head index, turned back into the newest-first
+  ``phis`` only at the segment's end.
+* ``run_segment_blocked``, the blocked memory-kernel convolution
+  (non-local phonon baths only): per block of ``block`` steps kernel K2
+  (``block_corr``) once per bath for the pre-block tails, then kernel K1
+  (``gle_block``) for the block's steps.
 
 Step structure (the reference's 3-bath-eval / 2-potential-eval scheme):
 
@@ -17,11 +26,14 @@ Step structure (the reference's 3-bath-eval / 2-potential-eval scheme):
     f2  = V'(q') + sum_b bforce_b(t+1, p1)
     p'  = p_half + f2 dt/2 ;  constrain p', q'
 
-Ported so far: the harmonic force (``dyn``) with non-local phonon baths
-on the blocked path, and the ``md`` runner's fused ``RunEnsemble``.
-Still to port (ROADMAP queue 1): ``vv_step``/``run_segment`` (the plain
-scan), electron and local baths, force drivers, ``Run`` and the
-checkpointed/segmented ``RunEnsemble``.
+Ported so far: the harmonic force (``dyn``), both integrators, and the
+``md`` runner's ``Run`` (segments, ``MD{j}.npz`` checkpoints with the
+JAX package's keys and shapes, so either package resumes the other's
+checkpoints) and fused ``RunEnsemble``. Random draws come from the
+counter-keyed ``torch.Generator`` schedule of ``parallel.ensemble``, so
+they are not the JAX package's draws; tests inject the same noise into
+both. Still to port (ROADMAP queue 1): force drivers and ``CompareForce``,
+and the checkpointed/segmented ``RunEnsemble``.
 """
 
 from __future__ import annotations
@@ -35,9 +47,11 @@ import torch
 
 from sclmd_tpu_torch import units as U
 from sclmd_tpu_torch.baths import PhBath
+from sclmd_tpu_torch.kernels.bath_force import BathForce
+from sclmd_tpu_torch.kernels.conv_tails import conv_tails_plan, tail_baths
 from sclmd_tpu_torch.kernels.gle_block import (BathOperands, gle_block,
                                                tap_major)
-from sclmd_tpu_torch.ops.functions import bose, matvec
+from sclmd_tpu_torch.ops.functions import bose, matvec, powerspecp
 
 
 @dataclass
@@ -63,7 +77,7 @@ class GLESystem:
     the constraint mask and the static run parameters."""
 
     dyn: torch.Tensor            # (nph, nph)
-    baths: tuple                 # PhBath, each with (traj, nmd, nc) noise
+    baths: tuple                 # EBath/PhBath, each with (traj, nmd, nc) noise
     mask: torch.Tensor           # (nph,) 1.0 = free, 0.0 = constrained
     dt: float
     nph: int
@@ -72,12 +86,21 @@ class GLESystem:
     # promise that ``mask`` is identically 1: the predictor force at
     # q_{t+1} then equals the last corrector force at q_tt, so each step
     # needs one fresh potential evaluation instead of two
+    # (blocked path only; the plain path evaluates the force twice)
     unconstrained: bool = False
+    # per-step outputs of the plain path: "ps", "qs", and "fbaths"/"f"
+    savep: bool = False
+    saveq: bool = False
+    savef: bool = False
 
     def replace(self, **changes) -> "GLESystem":
         return replace(self, **changes)
 
     def potential_force(self, q: torch.Tensor) -> torch.Tensor:
+        """-dyn q per trajectory: one GEMM on the card; on the CPU the
+        batch-invariant ``matvec`` (see ops.functions)."""
+        if q.device.type == "cuda":
+            return -(q @ self.dyn.T)
         return -matvec(self.dyn, q)
 
 
@@ -133,6 +156,95 @@ def set_dyn(dyn, dtype=torch.float64, device=None):
                  for x in (dyn, hw, au))
 
 
+def _check_noise(system: GLESystem, ntraj: int, who: str):
+    for b in system.baths:
+        if b.noise is None or b.noise.ndim != 3 or \
+                b.noise.shape != (ntraj, system.nmd, b.nc):
+            raise ValueError(
+                f"{who}: each bath needs a (traj, nmd, nc) noise batch for "
+                f"{ntraj} trajectories")
+
+
+def run_segment(system: GLESystem, state: MDState, nsteps: int,
+                t0: int = 0):
+    """Advance the batch ``nsteps`` plain GLE steps; returns
+    (final_state, outputs) with "etot" (traj, nsteps), "cur" (traj,
+    nsteps, nb) and, as the system's save flags ask, "ps"/"qs" (traj,
+    nsteps, nph) (the state at each step's start), "fbaths" (traj,
+    nsteps, nb, nph) (the predictor bath forces) and "f" (traj, nsteps,
+    nph) (the last corrector's total force).
+
+    ``t0`` is the segment's global step offset: step s reads noise row
+    (t0+s) mod nmd for the predictor and (t0+s+1) mod nmd for the
+    correctors, so a segment longer than nmd wraps. The velocity history
+    is a ring: old[i] = ring[:, (head+i) % ml], and each step's push
+    writes one row instead of shifting all of them.
+    """
+    ntraj, nph = state.p.shape
+    _check_noise(system, ntraj, "run_segment")
+    nmd, dt, nb = system.nmd, system.dt, len(system.baths)
+    dev, dtype = state.p.device, state.p.dtype
+    t0 = t0 % nmd
+    if nsteps == 0:
+        return state, {"etot": state.p.new_zeros((ntraj, 0)),
+                       "cur": state.p.new_zeros((ntraj, 0, nb))}
+
+    ring = state.phis.contiguous().clone()
+    mlr = ring.shape[1]
+    tidx = tail_baths(system.baths)
+    tails_of = conv_tails_plan(ring, [system.baths[i] for i in tidx]) \
+        if tidx else None
+    force = BathForce(system.baths, ntraj, nph, nmd, dt, dev)
+
+    def buf(*shape):
+        return torch.empty((ntraj, nsteps) + shape, dtype=dtype, device=dev)
+
+    ys = {"etot": buf(), "cur": buf(nb)}
+    if system.savep:
+        ys["ps"] = buf(nph)
+    if system.saveq:
+        ys["qs"] = buf(nph)
+    fbs = f_last = None
+    if system.savef:
+        ys["fbaths"] = buf(nb, nph).zero_()
+        ys["f"] = buf(nph)
+        fbs = [torch.empty((ntraj, b.nc), dtype=dtype, device=dev)
+               for b in system.baths]
+        f_last = torch.empty((ntraj, nph), dtype=dtype, device=dev)
+
+    p, q = state.p.contiguous(), state.q.contiguous()
+    qprev = state.qhis[:, 0]
+    tails = [None] * nb
+    head = 0
+    for s in range(nsteps):
+        r0, r1 = (t0 + s) % nmd, (t0 + s + 1) % nmd
+        if system.savep:
+            ys["ps"][:, s] = p
+        if system.saveq:
+            ys["qs"][:, s] = q
+        if tails_of is not None:
+            for i, tl in zip(tidx, tails_of(head)):
+                tails[i] = tl
+        push = (head - 1) % mlr
+        pthalf, qtt = force.pred(p, q, system.potential_force(q), ring,
+                                 head, push, tails, r0, ys["cur"][:, s],
+                                 ys["etot"][:, s], fbs)
+        pf2 = system.potential_force(qtt)
+        ptt1, _ = force.corr(pthalf, qtt, pf2, p, pthalf, tails, r1)
+        pnew, qnew = force.corr(ptt1, qtt, pf2, p, pthalf, tails, r1,
+                                mask=system.mask, f_out=f_last)
+        if system.savef:
+            ys["f"][:, s] = f_last
+            for i, b in enumerate(system.baths):
+                ys["fbaths"][:, s, i, b.cols] = fbs[i]
+        qprev, p, q, head = q, pnew, qnew, push
+
+    final = MDState(t=state.t + nsteps, p=p, q=q,
+                    phis=torch.roll(ring, -head, dims=1),
+                    qhis=qprev.unsqueeze(1))
+    return final, ys
+
+
 def _next_pow2(n: int) -> int:
     return 1 << (int(n) - 1).bit_length()
 
@@ -142,13 +254,9 @@ def _check_blocked(system: GLESystem, ntraj: int):
         if not isinstance(b, PhBath) or b.ml <= 1:
             raise NotImplementedError(
                 "run_segment_blocked: only non-local phonon baths (ml > 1) "
-                "are ported; electron and local baths wait for the plain "
-                "step (ROADMAP queue 1 items 3-4)")
-        if b.noise is None or b.noise.ndim != 3 or \
-                b.noise.shape != (ntraj, system.nmd, b.nc):
-            raise ValueError(
-                "run_segment_blocked: each bath needs a (traj, nmd, nc) "
-                f"noise batch for {ntraj} trajectories")
+                "are ported to K1; electron and local baths take the plain "
+                "step, run_segment (ROADMAP queue 1 item 4)")
+    _check_noise(system, ntraj, "run_segment_blocked")
 
 
 def run_segment_blocked(system: GLESystem, state: MDState, nsteps: int,
@@ -219,9 +327,31 @@ def run_segment_blocked(system: GLESystem, state: MDState, nsteps: int,
                    "cur": torch.cat(curs, dim=1)}
 
 
+
+
+def blocked_supports(system: GLESystem) -> bool:
+    """True when ``run_segment_blocked`` runs this system: non-local
+    phonon baths only (K1 has no electron or local rule yet) and no
+    per-step outputs beyond etot and cur."""
+    return (all(isinstance(b, PhBath) and b.ml > 1 for b in system.baths)
+            and not (system.savep or system.saveq or system.savef))
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
 class md:
-    """User-facing MD runner with the JAX package's constructor and
-    method names (the parts the ensemble path needs)."""
+    """User-facing MD runner with the JAX package's constructor, method
+    names and output files.
+
+    ``Run`` draws each run's noise, and its thermal start, from the
+    counter-keyed ``torch.Generator`` schedule of ``parallel.ensemble``
+    (stream = bath index for the noise of run j, index j; stream = number
+    of baths for the start), seeded by the runner's seed and call count.
+    These are not the JAX package's draws; a resumed run reads its noise
+    back from ``MD{j}.npz`` as in the JAX package.
+    """
 
     def __init__(self, dt, nmd, T, syslist=None, axyz=None, dyn=None,
                  nstart=0, nstop=1, npie=1, md2ang=U.MD2ANG,
@@ -235,10 +365,16 @@ class md:
         self.device = torch.device(device if device is not None else "cpu")
         self.outdir = outdir
         self.seed = int(seed)
-        self._ensemble_calls = 0
+        self._calls = 0
+        self.saveall = self.savep = self.saveq = self.rmnc = False
+        self.nstep = None
         self.constraint = None
+        self.atomlist = None
         self.initranvel = True
         self.state = None
+        self.power = self.poweratomlist = None
+        self.etot = self.curs = None
+        self.t = 0
 
         self.SetXyz(axyz)
         if syslist is not None:
@@ -259,7 +395,14 @@ class md:
         self.ml = 1
         self.baths = []
         self.setDyn(dyn)
+        if axyz is not None:
+            self.mass = [U.AtomicMassTable[el] for el in self.els]
+            self.conv = self.md2ang * np.repeat(
+                1.0 / np.sqrt(np.array(self.mass)), 3)
+        else:
+            self.mass = self.conv = None
 
+    # ---- setup (the JAX package's names) ----
     def SetXyz(self, axyz):
         if axyz is not None:
             self.xyz = np.array([a[1:] for a in axyz], dtype=float).flatten()
@@ -283,7 +426,9 @@ class md:
             self.hw = np.array([1.0])
             self.U = None
 
-    def AddBath(self, bath: PhBath):
+    def AddBath(self, bath):
+        """Attach an ``EBath`` or a ``PhBath`` (moved to the runner's
+        device)."""
         if self.dt != bath.dt:
             raise ValueError("md.AddBath: time step dt not consistent")
         if self.nmd != bath.nmd:
@@ -293,6 +438,46 @@ class md:
 
     def AddConstr(self, constr):
         self.constraint = constr
+
+    def AddPowerSection(self, atomlist):
+        self.atomlist = atomlist
+
+    def CalPowerSpec(self, cal=True):
+        self.savep = cal
+
+    def CalAveStruct(self, cal=True):
+        self.saveq = cal
+
+    def SaveAll(self, save=True):
+        self.saveall = save
+
+    def Savep(self, save=True):
+        self.savep = save
+
+    def Saveq(self, save=True):
+        self.saveq = save
+
+    def SaveTraj(self, nstep=100):
+        self.nstep = nstep
+
+    def RemoveNC(self, rmnc=True):
+        self.rmnc = rmnc
+
+    def SetT(self, T):
+        self.T = T
+
+    def SetMD(self, dt, nmd):
+        self.dt, self.nmd = dt, nmd
+
+    def noranvel(self, rf=False):
+        self.initranvel = rf
+
+    def ResetHis(self) -> MDState:
+        """Zeroed history rings as a fresh one-trajectory state."""
+        return initial_state(self._build_system(), 1, dtype=self.dtype)
+
+    def energy(self, state: MDState) -> float:
+        return 0.5 * float((state.p * state.p).sum())
 
     def _constraint_mask(self) -> torch.Tensor:
         mask = np.ones(self.nph, dtype=np.float64)
@@ -310,12 +495,223 @@ class md:
             dyn=self.dyn, baths=tuple(self.baths),
             mask=self._constraint_mask(),
             dt=self.dt, nph=self.nph, ml=self.ml, nmd=self.nmd,
-            unconstrained=self.constraint is None or not self.constraint)
+            unconstrained=self.constraint is None or not self.constraint,
+            savep=self.savep or self.saveall,
+            saveq=self.saveq or self.saveall or self.nstep is not None,
+            savef=self.saveall or self.nstep is not None)
 
+    def _next_seed(self) -> int:
+        from sclmd_tpu_torch.parallel.ensemble import ensemble_seed
+        self._calls += 1
+        return ensemble_seed(self.seed, self._calls)
+
+    def initialise(self, system: GLESystem, seed: Optional[int] = None):
+        """The start of ``Run``: a Bose-weighted thermal draw (stream =
+        number of baths of the schedule seeded ``seed``), or zeros."""
+        if not self.initranvel:
+            return initial_state(system, 1, dtype=self.dtype)
+        from sclmd_tpu_torch.parallel.ensemble import init_draws
+        seed = self._next_seed() if seed is None else seed
+        us = init_draws(seed, len(self.baths), 0, 1, self.nph, self.device,
+                        self.dtype)
+        return thermal_init(us, system, self.hw, self.U, self.T)
+
+    def _draw_noise(self, seed: int, j: int):
+        """Fresh noise of run ``j`` for every bath, as a batch of one."""
+        from sclmd_tpu_torch.ops.noise import sample_noise_from_r
+        from sclmd_tpu_torch.parallel.ensemble import (bath_factors,
+                                                       counter_generator)
+        facs = bath_factors(self.baths, self.device)
+        for i, (ev, std) in enumerate(facs):
+            r = torch.randn(tuple(std.shape), dtype=std.dtype,
+                            device=self.device,
+                            generator=counter_generator(seed, i, j,
+                                                        self.device))
+            nz = sample_noise_from_r(r[None], ev, std, self.dt, self.nmd)
+            self.baths[i] = self.baths[i].replace(noise=nz.to(self.dtype))
+
+    def info(self):
+        print("-" * 44)
+        print("GLE MD (torch, %s): na=%s dt=%s nmd=%s ml=%s baths=%d" %
+              (self.device, self.na, self.dt, self.nmd, self.ml,
+               len(self.baths)))
+
+    # ---- checkpoints (the JAX package's MD{j}.npz keys and shapes) ----
+    def _ckfile(self, j):
+        return os.path.join(self.outdir, f"MD{j}.npz")
+
+    def _check_checkpoint(self, ck, fn):
+        """Refuse checkpoints from a different setup (stale files in a
+        shared working directory would resume silently otherwise)."""
+        if ck["p"].shape != (self.nph,):
+            raise ValueError(
+                f"{fn} holds a different system (nph="
+                f"{ck['p'].shape[0]} vs {self.nph}) — stale checkpoint "
+                "in the working directory? Remove it or change outdir")
+        for i, b in enumerate(self.baths):
+            key = f"noise{i}"
+            if key in ck and ck[key].shape[1] != b.nc:
+                raise ValueError(
+                    f"{fn} bath {i} noise width {ck[key].shape[1]} != "
+                    f"{b.nc} — stale checkpoint from a different bath "
+                    "setup")
+        if "nmd" in ck and int(ck["nmd"][0]) != self.nmd:
+            raise ValueError(
+                f"{fn} was written with nmd={int(ck['nmd'][0])} but this "
+                f"run has nmd={self.nmd} — stale checkpoint")
+        if "dt" in ck and not np.isclose(float(ck["dt"][0]), self.dt,
+                                         rtol=1e-12):
+            raise ValueError(
+                f"{fn} was written with dt={float(ck['dt'][0])} but this "
+                f"run has dt={self.dt} — stale checkpoint")
+
+    def dump(self, state: MDState, ipie, j, outputs=None):
+        """Write the MD{j} checkpoint of a one-trajectory state."""
+        data = {
+            "p": _host(state.p[0]), "q": _host(state.q[0]),
+            "t": np.asarray([int(state.t[0])]),
+            "ipie": np.asarray([ipie]),
+            "nmd": np.asarray([self.nmd]), "dt": np.asarray([self.dt]),
+            "phis": _host(state.phis[0]), "qhis": _host(state.qhis[0]),
+        }
+        for i, b in enumerate(self.baths):
+            if b.noise is not None:
+                data[f"noise{i}"] = _host(b.noise[0])
+        if outputs is not None:
+            for k, v in outputs.items():
+                if v is not None:
+                    data[k] = np.asarray(v)
+        if self.power is not None:
+            data["power"] = np.asarray(self.power)
+            if self.poweratomlist is not None:
+                data["poweratomlist"] = np.asarray(self.poweratomlist)
+        np.savez(self._ckfile(j), **data)
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                               device=self.device)[None]
+
+    # ---- main loop ----
     def Run(self):
-        raise NotImplementedError(
-            "md.Run (segmented runs with MD{j} checkpoints) is not ported "
-            "yet (ROADMAP queue 1 item 5); use RunEnsemble")
+        """Runs ``nstart..nstop-1`` of ``nmd`` steps each, in ``npie``
+        segments with an ``MD{j}.npz`` checkpoint after every segment: an
+        unfinished run resumes from its checkpoint (state and noise), a
+        finished one is skipped, and a new run chains from MD{j-1}."""
+        system = self._build_system()
+        seed = self._next_seed()
+        state = self.initialise(system, seed)
+        self.info()
+
+        seg = self.nmd // self.npie
+        for j in range(self.nstart, self.nstop):
+            fn, fnm = self._ckfile(j), self._ckfile(j - 1)
+            collected = {}
+            ipie0 = -1
+            if os.path.isfile(fn):
+                ck = np.load(fn)
+                self._check_checkpoint(ck, fn)
+                ipie = int(ck["ipie"][0])
+                if ipie + 1 < self.npie:
+                    # resume an unfinished run
+                    state = MDState(
+                        t=torch.as_tensor([int(ck["t"][0])],
+                                          device=self.device),
+                        p=self._tensor(ck["p"]), q=self._tensor(ck["q"]),
+                        phis=self._tensor(ck["phis"]),
+                        qhis=self._tensor(ck["qhis"]))
+                    missing = [i for i in range(len(self.baths))
+                               if f"noise{i}" not in ck]
+                    if missing:
+                        self._draw_noise(seed, j)
+                    for i in range(len(self.baths)):
+                        if f"noise{i}" in ck:
+                            self.baths[i] = self.baths[i].replace(
+                                noise=self._tensor(ck[f"noise{i}"]))
+                    for k in ("etot", "cur", "ps", "qs", "fbaths", "f"):
+                        if k in ck:
+                            collected[k] = [np.asarray(ck[k])]
+                    ipie0 = ipie
+                    system = self._build_system()
+                else:
+                    # finished run: skip
+                    if "power" in ck:
+                        self.power = np.asarray(ck["power"])
+                    self.t = int(ck["t"][0])
+                    continue
+            else:
+                if os.path.isfile(fnm):
+                    # chain from the previous run with its warm history
+                    ck = np.load(fnm)
+                    state = state.replace(
+                        t=torch.as_tensor([int(ck["t"][0])],
+                                          device=self.device),
+                        p=self._tensor(ck["p"]), q=self._tensor(ck["q"]))
+                    if ck["phis"].shape == tuple(state.phis.shape[1:]):
+                        state = state.replace(phis=self._tensor(ck["phis"]),
+                                              qhis=self._tensor(ck["qhis"]))
+                elif j != 0 and j != self.nstart:
+                    raise FileNotFoundError("no previous checkpoint exists")
+                self._draw_noise(seed, j)
+                system = self._build_system()
+
+            trajfile = None
+            if self.nstep is not None:
+                trajfile = open(os.path.join(
+                    self.outdir, f"trajectories.{self.T:g}.run{j}.ani"), "w")
+
+            ck_keys = ("etot", "cur", "ps", "qs") + \
+                (("fbaths", "f") if self.saveall else ())
+            blocked = bool(self.block) and seg % self.block == 0 and \
+                blocked_supports(system)
+            wrote_segment = ipie0 >= 0
+            try:
+                for i in range(ipie0 + 1, self.npie):
+                    t0 = int(state.t[0]) % self.nmd
+                    if blocked:
+                        state, ys = run_segment_blocked(
+                            system, state, seg, t0=t0, block=self.block)
+                    else:
+                        state, ys = run_segment(system, state, seg, t0=t0)
+                    ys = {k: _host(v[0]) for k, v in ys.items()}
+                    # a diverged segment aborts with context instead of
+                    # writing non-finite checkpoints; etot observes the
+                    # state at each step's start, so the final state is
+                    # checked too
+                    state_bad = not bool(torch.isfinite(state.p).all()
+                                         and torch.isfinite(state.q).all())
+                    if state_bad or not np.isfinite(ys["etot"]).all():
+                        bad = seg - 1 if state_bad else int(np.argmax(
+                            ~np.isfinite(ys["etot"])))
+                        if wrote_segment:
+                            last_good = self._ckfile(j)
+                        elif os.path.isfile(self._ckfile(j - 1)):
+                            last_good = self._ckfile(j - 1)
+                        else:
+                            last_good = "none (run diverged before the "\
+                                "first checkpoint)"
+                        raise FloatingPointError(
+                            f"run {j}: non-finite state at step "
+                            f"{int(state.t[0]) - seg + bad}; last good "
+                            f"checkpoint: {last_good} — reduce dt or "
+                            f"check the force driver")
+                    for k, v in ys.items():
+                        collected.setdefault(k, []).append(v)
+                    if trajfile is not None:
+                        self._write_traj(trajfile, ys, seg, i)
+                    self.dump(state, i, j, outputs={
+                        k: np.concatenate(v, axis=0)
+                        for k, v in collected.items() if k in ck_keys})
+                    wrote_segment = True
+
+                outputs = {k: np.concatenate(v, axis=0)
+                           for k, v in collected.items()}
+                self._postrun(j, state, outputs)
+            finally:
+                if trajfile is not None:
+                    trajfile.close()
+            if self.rmnc and os.path.exists(self._ckfile(j - 1)):
+                os.remove(self._ckfile(j - 1))
+        self.state = state
 
     def RunEnsemble(self, ntraj: int, nsteps: Optional[int] = None,
                     equil_frac: float = 0.25, block: Optional[int] = None,
@@ -326,15 +722,16 @@ class md:
         the first ``equil_frac`` of the steps, and writes the
         kappa.T.bathI.runJ.dat files.
 
-        Chunks of ``chunk`` trajectories (default: ``auto_chunk`` from
-        the card's memory) run one after another, each synthesising only
-        its own noise. Every draw comes from a generator keyed by (seed,
-        stream, trajectory index), so the draws do not depend on the
-        chunking.
+        The blocked integrator runs when ``block`` (or the runner's)
+        divides ``nsteps`` and the baths are non-local phonon baths; else
+        the plain step, as the JAX runner falls back to it. Chunks of
+        ``chunk`` trajectories (default: ``auto_chunk`` from the card's
+        memory) run one after another, each synthesising only its own
+        noise. Every draw comes from a generator keyed by (seed, stream,
+        trajectory index), so the draws do not depend on the chunking.
         """
         from sclmd_tpu_torch.parallel.ensemble import (
-            auto_chunk, bath_factors, draw_chunk, ensemble_seed,
-            fused_chunk)
+            auto_chunk, bath_factors, draw_chunk, fused_chunk)
 
         nsteps = nsteps or self.nmd
         npie = npie or 1
@@ -342,21 +739,17 @@ class md:
             raise NotImplementedError(
                 "RunEnsemble: the checkpointed and segmented (npie > 1) "
                 "branches are not ported yet (ROADMAP queue 1 item 5)")
-        block = block if block is not None else self.block
-        if not block or nsteps % block:
-            raise ValueError(
-                f"RunEnsemble: nsteps={nsteps} needs a block size that "
-                f"divides it (got block={block}); the plain scan it would "
-                "fall back to is not ported yet")
         system = self._build_system()
+        block = block if block is not None else self.block
+        if not (block and nsteps % block == 0 and blocked_supports(system)):
+            block = None
         nb = len(self.baths)
         skip = int(nsteps * equil_frac)
         if chunk is None:
             chunk = auto_chunk(system, ntraj, nsteps, block, depth=2)
         chunk = max(1, min(int(chunk), ntraj))
 
-        self._ensemble_calls += 1
-        seed = ensemble_seed(self.seed, self._ensemble_calls)
+        seed = self._next_seed()
         thermal = self.initranvel
         facs = bath_factors(self.baths, self.device)
         cur_sum = np.zeros((ntraj, nb))
@@ -394,6 +787,7 @@ class md:
         self.state = first
         return means
 
+    # ---- output files ----
     def _write_kappa_files(self, ntraj, nb, means):
         """Per-trajectory kappa.T.bathI.runJ.dat files, the format the
         calHF/calTC aggregators read."""
@@ -404,3 +798,89 @@ class md:
                 with open(path, "w") as f:
                     f.write("%i %f    %f \n" % (
                         jtraj, self.T, means[jtraj, ii] * U.CURCOF))
+
+    def _write_traj(self, fh, ys, seg, ipie):
+        """ani-format frames every ``nstep`` steps: element, position
+        (angstrom) and force per atom."""
+        qs, fs = ys.get("qs"), ys.get("f")
+        if qs is None or fs is None:
+            return
+        base = ipie * seg
+        for s in range(seg):
+            tstep = base + s
+            if tstep == 0 or tstep % self.nstep == 0:
+                fh.write(f"{len(self.els)}\n{tstep}\n")
+                struct_ = self.xyz + self.conv * qs[s]
+                frc = fs[s]
+                for ip, el in enumerate(self.els):
+                    fh.write("%s    %s   %s   %s   %s   %s   %s\n" % (
+                        el, struct_[3 * ip], struct_[3 * ip + 1],
+                        struct_[3 * ip + 2], frc[3 * ip],
+                        frc[3 * ip + 1], frc[3 * ip + 2]))
+
+    def _power(self, ps) -> np.ndarray:
+        return _host(powerspecp(torch.as_tensor(ps), self.dt, self.nmd))
+
+    def _postrun(self, j, state, outputs):
+        """Per-run power spectra, kappa files, average structure and the
+        final MD{j} checkpoint."""
+        self.etot = outputs.get("etot")
+        self.curs = outputs.get("cur")
+        if self.savep and "ps" in outputs:
+            power = self._power(outputs["ps"])
+            if self.power is None or j == self.nstart:
+                self.power = power
+            else:
+                self.power = (self.power * (j - self.nstart) + power) / \
+                    float(j - self.nstart + 1)
+            self._write_power(j, self.power, "power")
+            if self.atomlist is not None:
+                pal = np.array([self._power(outputs["ps"][:, list(sel)])
+                                for sel in self.atomlist])
+                if self.poweratomlist is None or j == self.nstart:
+                    self.poweratomlist = pal
+                else:
+                    self.poweratomlist = (
+                        self.poweratomlist * (j - self.nstart) + pal) / \
+                        float(j - self.nstart + 1)
+                for layer in range(len(self.atomlist)):
+                    self._write_power(j, self.poweratomlist[layer],
+                                      f"poweratomlist.{layer}")
+
+        if self.curs is not None:
+            for ii in range(len(self.baths)):
+                with open(os.path.join(
+                        self.outdir,
+                        f"kappa.{self.T:g}.bath{ii}.run{j}.dat"), "w") as fk:
+                    fk.write("%i %f    %f \n" % (
+                        j, self.T,
+                        float(np.mean(self.curs[:, ii])) * U.CURCOF))
+
+        if self.saveq and "qs" in outputs and self.xyz is not None:
+            ave = self.conv * outputs["qs"].mean(axis=0) + self.xyz
+            with open(os.path.join(
+                    self.outdir,
+                    f"avestructure.{self.T:g}.run{j}.dat"), "w") as f:
+                f.write(f"{len(self.els)}\naverage structure\n")
+                for ip, el in enumerate(self.els):
+                    f.write("%s    %s   %s   %s\n" % (
+                        el, ave[3 * ip], ave[3 * ip + 1], ave[3 * ip + 2]))
+
+        keep = ("etot", "cur", "ps", "qs") + \
+            (("fbaths", "f") if self.saveall else ())
+        self.dump(state, self.npie - 1, j, outputs={
+            k: outputs.get(k) for k in keep if k in outputs})
+
+    def _write_power(self, j, power, prefix):
+        with open(os.path.join(
+                self.outdir, f"{prefix}.{self.T:g}.run{j}.dat"), "w") as f:
+            for ni in range(len(power)):
+                if self.hw is not None and \
+                        power[ni, 0] >= 1.5 * float(np.max(self.hw)):
+                    break
+                f.write("%f     %f \n" % (power[ni, 0], power[ni, 1]))
+
+    def GetPower(self):
+        if self.curs is None:
+            raise RuntimeError("run first")
+        return self.power

@@ -8,9 +8,11 @@ conductance and pinned by golden-value tests, so none is "fixed":
 * ``flinterp_np`` anchors on the nearest grid point and takes its slope
   toward the neighbour on the side of x, clamping at both grid ends.
 
-Host-side setup helpers (``bose``, ``equ_spectrum``, ``flinterp_np``,
-``hermitianize``) are numpy float64; the runtime helpers
-(``fourier_w2t``, ``rpadleft``) take torch tensors.
+Host-side setup helpers (``bose``, ``fermi``, ``equ_spectrum``,
+``nonequ_spectrum``, ``flinterp_np``, ``hermitianize``) are numpy
+float64; the runtime helpers (``fourier_w2t``/``fourier_t2w``,
+``powerspecp``/``powerspecq``, ``rpadleft``) take torch tensors;
+``chkShape``/``symmetrize``/``antisymmetrize`` take either.
 """
 
 from __future__ import annotations
@@ -19,6 +21,12 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch import units as U
+
+
+def fourier_t2w(a: torch.Tensor, dt: float, dim: int = 0) -> torch.Tensor:
+    """f(w) = int f(t) e^{iwt} dt = ``ifft(a) * N dt``."""
+    n = a.shape[dim]
+    return torch.fft.ifft(a, dim=dim) * (n * dt)
 
 
 def fourier_w2t(a: torch.Tensor, dt: float, dim: int = 0) -> torch.Tensor:
@@ -42,6 +50,18 @@ def bose(w, T):
     return np.where(t_zero, b0, bT)
 
 
+def fermi(ep, mu, T):
+    """Fermi-Dirac occupation; at T=0 a step with 0.5 at ``mu`` (numpy)."""
+    ep = np.asarray(ep, dtype=np.result_type(float, ep))
+    T = np.asarray(T, dtype=ep.dtype)
+    t_zero = T == 0.0
+    f0 = np.where(ep < mu, 1.0, np.where(ep > mu, 0.0, 0.5))
+    T_safe = np.where(t_zero, 1.0, T)
+    with np.errstate(over="ignore"):
+        fT = 1.0 / (np.exp((ep - mu) / (U.KB * T_safe)) + 1.0)
+    return np.where(t_zero, f0, fT)
+
+
 def equ_spectrum(w, cut, T, classical: bool = False, zpmotion: bool = True):
     """Equilibrium noise weight 2 hw (n_B(hw,T) + zp) with the strict
     ``hw < cut`` band window; 2 kT in the classical limit and at w=0."""
@@ -55,6 +75,20 @@ def equ_spectrum(w, cut, T, classical: bool = False, zpmotion: bool = True):
         quantum = 2.0 * hw * (zp + bose(hw, T))
         val = np.where(hw == 0.0, 2.0 * U.KB * T, quantum)
     return np.where(inside, val, 0.0)
+
+
+def nonequ_spectrum(w, bias, T, sign: int, classical: bool = False):
+    """Bias-shifted nonequilibrium weight 2 (hw + sign V) (n(hw + sign V)
+    - n(hw)), ``sign`` -1 or +1 (numpy)."""
+    w = np.asarray(w, dtype=np.result_type(float, w))
+    hw1 = U.HBAR * w + sign * bias
+    hw2 = U.HBAR * w
+    if classical:
+        small = 10e-20
+        hw1s = np.where(hw1 == 0.0, small, hw1)
+        hw2s = np.where(hw2 == 0.0, small, hw2)
+        return 2.0 * hw1s * (U.KB * T / hw1s - U.KB * T / hw2s)
+    return 2.0 * hw1 * (bose(hw1, T) - bose(hw2, T))
 
 
 def flinterp_np(x, xs, ys):
@@ -81,6 +115,48 @@ def hermitianize(a):
     """0.5 (A + A^dagger), batched over leading axes (numpy)."""
     a = np.asarray(a)
     return 0.5 * (a + np.conjugate(np.swapaxes(a, -1, -2)))
+
+
+def chkShape(a) -> int:
+    """Side of a square matrix; raises for anything else."""
+    a = a if torch.is_tensor(a) else np.asarray(a)
+    if a.ndim != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError("matrix must be square, got shape %s"
+                         % (tuple(a.shape),))
+    return a.shape[0]
+
+
+def symmetrize(a):
+    """0.5 (A + A^T) of a numpy array or a torch tensor."""
+    return 0.5 * (a + a.T)
+
+
+def antisymmetrize(a):
+    """0.5 (A - A^T) of a numpy array or a torch tensor."""
+    return 0.5 * (a - a.T)
+
+
+def _power(x: torch.Tensor, dt: float, nmd: int, name: str):
+    if x.shape[0] != nmd:
+        raise ValueError(f"{name}: shape error")
+    xw = fourier_t2w(x, dt, dim=0)
+    mag = (xw.real ** 2 + xw.imag ** 2).sum(dim=1) / (dt * nmd)
+    w = 2.0 * np.pi / dt / nmd * torch.arange(nmd, dtype=x.dtype,
+                                              device=x.device)
+    return w, mag
+
+
+def powerspecp(ps: torch.Tensor, dt: float, nmd: int) -> torch.Tensor:
+    """Velocity power spectrum of ``ps`` (nmd, nph): (nmd, 2) rows of
+    [w_i, sum_dof |v(w_i)|^2 / (dt nmd)]."""
+    w, mag = _power(ps, dt, nmd, "powerspecp")
+    return torch.stack([w, mag], dim=1)
+
+
+def powerspecq(qs: torch.Tensor, dt: float, nmd: int) -> torch.Tensor:
+    """Displacement power spectrum: rows of [w_i, w_i^2 |q(w_i)|^2 / (dt nmd)]."""
+    w, mag = _power(qs, dt, nmd, "powerspecq")
+    return torch.stack([w, w ** 2 * mag], dim=1)
 
 
 def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

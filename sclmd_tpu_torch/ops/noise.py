@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sclmd_tpu_torch import units as U
 from sclmd_tpu_torch.ops.functions import (equ_spectrum, flinterp_np,
                                            fourier_w2t, hermitianize)
 
@@ -42,6 +43,28 @@ def phonon_psd(wl, gamma, gwl, T, phcut, classical: bool = False,
     gw = flinterp_np(wl, np.asarray(gwl), gamma)
     cplx = np.result_type(gamma.dtype, np.complex64)
     return hermitianize((aw[..., None, None] * gw).astype(cplx))
+
+
+def electron_psd(wl, efric, exim, exip, bias, T, ecut,
+                 classical: bool = False, zpmotion: bool = True,
+                 delta: float = 1.0) -> np.ndarray:
+    """Electron-bath noise PSD on the grid ``wl``: the equilibrium part
+    a(w) efric plus the bias-shifted parts (-a(w) + (a(w-V) + a(w+V))/2)
+    exip + i (a(w-V) - a(w+V))/2 exim, with a = d * equ(w); a complex
+    Hermitian (nw, nc, nc) batch (numpy)."""
+    wl = np.asarray(wl)
+    efric, exip, exim = (np.asarray(m) for m in (efric, exip, exim))
+    aw = delta * equ_spectrum(wl, ecut, T, classical, zpmotion)
+    awm = delta * equ_spectrum(wl - bias / U.HBAR, ecut, T, classical,
+                               zpmotion)
+    awp = delta * equ_spectrum(wl + bias / U.HBAR, ecut, T, classical,
+                               zpmotion)
+    aw_, awm_, awp_ = (x[..., None, None] for x in (aw, awm, awp))
+    cplx = np.result_type(efric.dtype, np.complex64)
+    amat = (aw_ * efric
+            + (-aw_ + 0.5 * (awm_ + awp_)) * exip
+            + 0.5j * (awm_ - awp_) * exim.astype(cplx))
+    return hermitianize(amat.astype(cplx))
 
 
 def noise_factors(psd, dtype=None):

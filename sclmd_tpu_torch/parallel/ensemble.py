@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch.md import (GLESystem, MDState, initial_state,
-                                run_segment_blocked, thermal_init)
+                                run_segment, run_segment_blocked,
+                                thermal_init)
 from sclmd_tpu_torch.ops.noise import factor_matrix, sample_noise_from_r
 
 _MASK64 = (1 << 64) - 1
@@ -108,20 +109,23 @@ def estimate_traj_bytes(system: GLESystem, nsteps: int,
                         block: Optional[int] = None) -> int:
     """Rough per-trajectory peak device memory of one ensemble member:
     the noise series and its synthesis transients, the blocked path's
-    history, tails, ring and FFT scratch, the state, and the per-step
-    outputs, with a 2x allocator-slack factor."""
+    history, tails, ring and FFT scratch (``block`` given) or the plain
+    path's tail partials (``block`` None), the state and history ring,
+    and the per-step outputs, with a 2x allocator-slack factor."""
     item = torch.empty((), dtype=system.mask.dtype).element_size()
-    block = block or 64
     nb = len(system.baths)
     total = 0
     for b in system.baths:
         nc = int(b.nc)
         # noise (nmd, nc) + draws + complex half and full spectra + fft
         total += (system.nmd + 6 * system.nmd) * nc * item
-        if b.ml > 1:
+        if b.ml > 1 and block:
             nfft = 1 << (int(b.ml + block + 2) - 1).bit_length()
             total += (2 * (b.ml - 1 + block) + 2 * (block + 1)
                       + 4 * (nfft // 2 + 1)) * nc * item
+        elif b.ml > 2:
+            # K6's per-split partial sums (8 taps per split) and tails
+            total += (2 * (b.ml // 8 + 1) + 2) * nc * item
     total += (system.ml + 8) * system.nph * item
     total += nsteps * (nb + 1) * item
     return 2 * total
@@ -152,9 +156,10 @@ def auto_chunk(system: GLESystem, ntraj: int, nsteps: int,
 
 
 def fused_chunk(system: GLESystem, facs, rs, us, hw, evecs, T_init,
-                nsteps: int, t0: int, block: int, skiplo: int):
-    """Noise synthesis + initial states + blocked run + current reduction
-    for one chunk of trajectories.
+                nsteps: int, t0: int, block: Optional[int], skiplo: int):
+    """Noise synthesis + initial states + run + current reduction for one
+    chunk of trajectories: the blocked integrator with ``block``, the
+    plain step (``run_segment``) when ``block`` is None.
 
     ``rs``: per-bath (chunk, nw, nc) standard-normal draws; ``us``:
     (chunk, nph) uniform thermal-init phases, or None for a zero start.
@@ -172,7 +177,10 @@ def fused_chunk(system: GLESystem, facs, rs, us, hw, evecs, T_init,
         states = initial_state(system, chunk)
     else:
         states = thermal_init(us, system, hw, evecs, T_init)
-    finals, ys = run_segment_blocked(sysb, states, nsteps, t0=t0,
-                                     block=block)
+    if block is None:
+        finals, ys = run_segment(sysb, states, nsteps, t0=t0)
+    else:
+        finals, ys = run_segment_blocked(sysb, states, nsteps, t0=t0,
+                                         block=block)
     cur = ys["cur"]
     return finals, cur[:, skiplo:, :].sum(dim=1), torch.isfinite(cur).all()

@@ -1,0 +1,58 @@
+"""The harmonic flagship junction of the JAX package's bench.py
+(``_flagship_build``, bench.py:441-461, at ``flagship``'s nmd, :396): the
+201-atom C/H junction of the committed ``scripts/flagship_negf.npz``
+(geometry ``els``/``pos`` and its 603 x 603 dynamical matrix ``dyn_ev2``),
+two electron baths on the 150 lead DOFs of each side with friction
+I / (100 fs) at T (1 +- delta/2), T 300 K, delta 0.1, wmax 1.0, nw 500,
+the 120 DOFs of the outer atoms fixed, dt 0.25/0.658, nmd 1024.
+The many-body C/H force driver of the bench's flagship is not ported
+(kernel K5): the force is the harmonic one from ``dyn_ev2``.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+NMD, T, DELTA = 1024, 300.0, 0.1
+DT = 0.25 / 0.658
+DAMP = 100 / 0.658211814201041          # 100 fs in natural time units
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "scripts", "flagship_negf.npz")
+
+
+def flagship_junction():
+    """(axyz, partition, dyn) of the flagship junction (host numpy)."""
+    from sclmd_tpu_torch.utils.junction import partition_by_axis
+
+    negf = np.load(NPZ)
+    axyz = [[str(e)] + list(map(float, p))
+            for e, p in zip(negf["els"], negf["pos"])]
+    return axyz, partition_by_axis(axyz), np.asarray(negf["dyn_ev2"])
+
+
+def flagship_runner(dtype, device, outdir, nmd: int = NMD, seed: int = 11,
+                    temps=(T * (1 + DELTA / 2), T * (1 - DELTA / 2))):
+    """An ``md.md`` runner of the flagship junction writing to ``outdir``,
+    with its left and right leads at ``temps``."""
+    from sclmd_tpu_torch import baths as B
+    from sclmd_tpu_torch.md import md
+
+    axyz, part, dyn = flagship_junction()
+    r = md(DT, nmd, T, axyz=axyz, dyn=dyn, dtype=dtype, seed=seed,
+           outdir=outdir, device=device)
+    for cats, tt in zip((part["ecatsl"], part["ecatsr"]), temps):
+        eta = (1.0 / DAMP) * np.identity(len(cats))
+        r.AddBath(B.ebath(cats, tt, r.dt, r.nmd, wmax=1.0, nw=500,
+                          efric=eta, dtype=dtype, device=device))
+    r.AddConstr([part["fixdofs"]])
+    return r
+
+
+def chunk_sizes(system, ntraj: int) -> list:
+    """The trajectory counts of the chunks ``RunEnsemble(ntraj)`` runs on
+    the plain step (``block=None``)."""
+    from sclmd_tpu_torch.parallel.ensemble import auto_chunk
+
+    chunk = min(auto_chunk(system, ntraj, NMD, None, depth=2), ntraj)
+    return [min(chunk, ntraj - c0) for c0 in range(0, ntraj, chunk)]

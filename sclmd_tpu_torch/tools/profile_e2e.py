@@ -1,14 +1,20 @@
-"""Where the time of ``RunEnsemble`` goes on the card, at the primary
-junction.
+"""Where the time of a run goes on the card.
 
     python -m sclmd_tpu_torch.tools.profile_e2e --out DIR \\
-        [--ntraj 256 1024]
+        [--workload primary|flagship|run] [--ntraj 256 1024]
+
+Workloads: ``primary``, ``RunEnsemble`` on the primary junction with
+the blocked integrator (K1, K2); ``flagship``, ``RunEnsemble`` on the
+harmonic flagship with the plain step (K7); ``run``, ``md.Run`` of one
+2048-step run in two segments on the primary junction with the plain
+step (K6, K7; ``--ntraj`` is ignored).
 
 Needs a CUDA card. For each trajectory count: one warm-up call, one
 untraced call timed on the host clock (``torch.cuda.synchronize`` inside
 the window), then one call under ``torch.profiler`` with a span around
-each layer (draws, noise synthesis, thermal init, the blocked
-integrator, K1, K2, the kappa files). From the trace it reports:
+each layer (draws, noise synthesis, thermal init, the integrators, the
+potential force, K1, K2, K6, K7, the output files). From the trace it
+reports:
 
 * ``wall_s``: untraced and traced host wall time of the call;
 * ``device_busy_ms``: the union of all kernel, copy and memset intervals
@@ -17,7 +23,8 @@ integrator, K1, K2, the kappa files). From the trace it reports:
   of the device work launched inside it);
 * the ten device kernels with the most time.
 
-Writes ``summary.json`` and one Chrome trace per count to ``--out`` and
+Writes ``summary_<workload>.json`` and one Chrome trace per count to
+``--out`` and
 prints the summary as JSON lines, after the card's name and power limit.
 """
 
@@ -40,8 +47,17 @@ SPANS = {
     "thermal_init": ("sclmd_tpu_torch.parallel.ensemble", "thermal_init"),
     "run_segment_blocked": ("sclmd_tpu_torch.parallel.ensemble",
                             "run_segment_blocked"),
+    "run_segment": ("sclmd_tpu_torch.parallel.ensemble", "run_segment"),
+    "run_segment_Run": ("sclmd_tpu_torch.md", "run_segment"),
+    "potential_force": ("sclmd_tpu_torch.md:GLESystem", "potential_force"),
     "K1_gle_block": ("sclmd_tpu_torch.md", "gle_block"),
     "K2_block_corr": ("sclmd_tpu_torch.kernels.block_corr", "block_corr"),
+    "K6_conv_tails": ("sclmd_tpu_torch.kernels.conv_tails:ConvTailsCuda",
+                      "__call__"),
+    "K7_bath_force": ("sclmd_tpu_torch.kernels.bath_force:BathForce",
+                      "_launch"),
+    "Run_noise": ("sclmd_tpu_torch.md:md", "_draw_noise"),
+    "Run_postrun": ("sclmd_tpu_torch.md:md", "_postrun"),
     "kappa_files": ("sclmd_tpu_torch.md:md", "_write_kappa_files"),
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -110,31 +126,55 @@ def summarise(trace_path, wall_traced):
                             for n, (c, ms) in top]}
 
 
+def workload(name: str, dev):
+    """(call(ntraj), trajectory-steps of one call(ntraj)) of a workload."""
+    if name == "flagship":
+        from sclmd_tpu_torch.tools import flagship as F
+        r = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp())
+        return (lambda n: r.RunEnsemble(n, nsteps=F.NMD, block=None),
+                lambda n: n * F.NMD)
+    from sclmd_tpu_torch.tools.primary import BLOCK, NMD, primary_runner
+    if name == "primary":
+        r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
+        return (lambda n: r.RunEnsemble(n, nsteps=NMD, block=BLOCK),
+                lambda n: n * NMD)
+
+    r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
+    r.block, r.nstart, r.nstop, r.npie = None, 0, 1, 2
+    r.CalPowerSpec()
+
+    def run(n):
+        # a fresh directory each time: Run skips runs it finds finished
+        r.outdir = tempfile.mkdtemp()
+        r.Run()
+    return run, lambda n: NMD
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", default="primary",
+                    choices=["primary", "flagship", "run"])
     ap.add_argument("--ntraj", type=int, nargs="+", default=[256, 1024])
     ap.add_argument("--out", required=True,
-                    help="directory for the traces and summary.json")
+                    help="directory for the traces and the summary")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_e2e: needs a CUDA device")
-    from sclmd_tpu_torch.tools.primary import BLOCK, NMD, primary_runner
-
     os.makedirs(args.out, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    r = primary_runner(torch.float32, torch.device("cuda", 0),
-                       tempfile.mkdtemp())
+    call, steps = workload(args.workload, torch.device("cuda", 0))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    summary = {"device": smi}
-    for n in args.ntraj:
-        r.RunEnsemble(n, nsteps=NMD, block=BLOCK)      # warm-up
+    summary = {"device": smi, "workload": args.workload}
+    counts = [1] if args.workload == "run" else args.ntraj
+    for n in counts:
+        call(n)                                       # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r.RunEnsemble(n, nsteps=NMD, block=BLOCK)
+        call(n)
         torch.cuda.synchronize()
         walls = [time.perf_counter() - t0]
         undo = _wrap_spans()
@@ -142,18 +182,19 @@ def main(argv=None):
             with torch.profiler.profile(activities=acts) as prof:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                r.RunEnsemble(n, nsteps=NMD, block=BLOCK)
+                call(n)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
         finally:
             undo()
-        path = os.path.join(args.out, f"trace_{n}.json")
+        path = os.path.join(args.out, f"trace_{args.workload}_{n}.json")
         prof.export_chrome_trace(path)
         summary[n] = {"wall_s": {"untraced": walls[0], "traced": walls[1]},
-                      "traj_steps_per_s_untraced": n * NMD / walls[0],
+                      "traj_steps_per_s_untraced": steps(n) / walls[0],
                       **summarise(path, walls[1])}
         print(json.dumps({"ntraj": n, **summary[n]}), flush=True)
-    with open(os.path.join(args.out, "summary.json"), "w") as f:
+    with open(os.path.join(args.out, f"summary_{args.workload}.json"),
+              "w") as f:
         json.dump(summary, f, indent=1)
 
 

@@ -106,8 +106,14 @@ def test_from_jax_bath_roundtrip():
     assert (cb.cs, cb.ml, cb.nmd, cb.dt) == (tb.cs, tb.ml, tb.nmd, tb.dt)
     eb = JB.ebath(range(3), 300.0, 0.4, 64, wmax=1.0, efric=np.eye(3) / 60,
                   dtype=jnp.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_jax_bath(eb)
+    ce = from_jax_bath(eb)
+    assert isinstance(ce, TB.EBath) and (ce.cs, ce.ml, ce.nc) == (0, 1, 3)
+    np.testing.assert_array_equal(ce.efric.numpy(), np.asarray(eb.efric))
+    local = from_jax_bath(JB.phbath(300.0, [1, 4], 0.3, 32, 0.4, 64,
+                                    dtype=jnp.float64))
+    assert local.local and local.ml == 1 and local.cs is None
+    with pytest.raises(TypeError, match="unknown bath"):
+        from_jax_bath(object())
 
 
 def test_lead_block_mode_not_ported():

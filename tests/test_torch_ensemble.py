@@ -161,7 +161,117 @@ def test_unported_branches_raise(tmp_path):
     for kw in (dict(checkpoint=True), dict(npie=2)):
         with pytest.raises(NotImplementedError, match="item 5"):
             r.RunEnsemble(2, **kw)
-    with pytest.raises(ValueError, match="block"):
-        r.RunEnsemble(2, nsteps=40)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        r.Run()
+
+
+@pytest.mark.parametrize("block", [None, 24])
+def test_run_ensemble_falls_back_to_plain(tmp_path, block):
+    """No block, or one that does not divide nsteps: the plain step runs
+    (as the JAX runner falls back to it), and so K1 is never reached."""
+    r = _torch_runner(tmp_path)
+    r.block = None
+    means = r.RunEnsemble(3, nsteps=40, block=block)
+    assert means.shape == (3, 2) and np.isfinite(means).all()
+
+
+def _plain_baths(kind, dtype, pkg):
+    """Electron + local baths, or a memory-kernel bath with tails + an
+    electron bath, built by the JAX (``pkg`` JB) or the port (TB)."""
+    f64 = dtype in (jnp.float64, torch.float64)
+    assert f64
+    eta = np.eye(NC) / 60.0
+    wind = 0.01 * np.random.default_rng(0).normal(size=(2, NC, NC))
+    eb = pkg.ebath(range(NPH - NC, NPH), 270.0, DT, NMD, wmax=1.0,
+                   efric=eta, dtype=dtype)
+    if kind == "electron_local":
+        return [pkg.ebath(range(NC), 330.0, DT, NMD, wmax=1.0, efric=eta,
+                          bias=0.2, exim=wind[0], zeta2=wind[1],
+                          dtype=dtype),
+                pkg.phbath(300.0, [4, 6], 0.3, 32, DT, NMD, dtype=dtype),
+                eb]
+    return [pkg.phbath(330.0, range(NC), 0.3, 32, DT, NMD, ml=ML,
+                       gamma=GAM, gwl=GWL, dtype=dtype), eb]
+
+
+@pytest.mark.parametrize("kind", ["electron_local", "memory_electron"])
+def test_fused_chunk_plain_matches_jax(kind):
+    """block=None: the port's fused_chunk on the plain step equals the
+    JAX plain ensemble per trajectory (injected draws, rtol 1e-9)."""
+    ntraj, nsteps, skip = 3, 48, 12
+    jbaths = _plain_baths(kind, jnp.float64, JB)
+    dyn, hw, U = JMD.set_dyn(_dyn(), dtype=jnp.float64)
+    keys = jax.random.split(jax.random.PRNGKey(5), ntraj)
+    us = np.stack([np.asarray(jax.random.uniform(k, (NPH,),
+                                                 dtype=jnp.float64))
+                   for k in keys])
+    seeds = [[50 * i + j for j in range(ntraj)] for i in range(len(jbaths))]
+    mask = np.ones(NPH)
+    mask[[0, 5]] = 0.0
+    ml = max(b.ml for b in jbaths)
+
+    want = []
+    for j in range(ntraj):
+        bs = tuple(b.replace(noise=jnp.asarray(JN.sample_noise_np(
+            np.random.default_rng(seeds[i][j]), b.nevecs, b.nstd, DT, NMD)),
+            nevecs=None, nstd=None) for i, b in enumerate(jbaths))
+        sys_j = JMD.GLESystem(dyn=dyn, baths=bs, mask=jnp.asarray(mask),
+                              dt=DT, nph=NPH, ml=ml, nmd=NMD)
+        st = JMD.thermal_init(keys[j], sys_j, hw, U, T)
+        _, ys = JMD.run_segment(sys_j, st, nsteps)
+        want.append(np.asarray(ys["cur"])[skip:].sum(axis=0))
+
+    r = _torch_runner("unused")
+    r.baths, r.ml = _plain_baths(kind, torch.float64, TB), ml
+    r.AddConstr([[0, 5]])
+    facs = TE.bath_factors(r.baths, "cpu")
+    rs = [torch.as_tensor(np.stack([
+        np.random.default_rng(s).standard_normal(tuple(std.shape))
+        for s in seeds[i]])) for i, (_, std) in enumerate(facs)]
+    finals, sums, ok = TE.fused_chunk(
+        r._build_system(), facs, rs, torch.as_tensor(us), r.hw, r.U, T,
+        nsteps, 0, None, skip)
+    assert bool(ok) and sums.shape == (ntraj, len(jbaths))
+    np.testing.assert_allclose(sums.numpy(), np.stack(want), rtol=1e-9,
+                               atol=1e-14)
+    assert not finals.p[:, [0, 5]].any()
+
+
+def test_run_ensemble_plain_matches_jax(tmp_path, monkeypatch):
+    """The runner itself on the plain path (ragged chunks of 2, the
+    equilibration skip, the means and the kappa files) against the JAX
+    plain step per trajectory, with the schedule's draws replaced by
+    injected numbers."""
+    ntraj, nsteps, equil = 3, 40, 0.25
+    skip = int(nsteps * equil)
+    jbaths = _plain_baths("electron_local", jnp.float64, JB)
+    dyn, hw, U = JMD.set_dyn(_dyn(), dtype=jnp.float64)
+    keys = jax.random.split(jax.random.PRNGKey(9), ntraj)
+    us = np.stack([np.asarray(jax.random.uniform(k, (NPH,),
+                                                 dtype=jnp.float64))
+                   for k in keys])
+    seeds = [[70 * i + j for j in range(ntraj)] for i in range(len(jbaths))]
+    want = []
+    for j in range(ntraj):
+        bs = tuple(b.replace(noise=jnp.asarray(JN.sample_noise_np(
+            np.random.default_rng(seeds[i][j]), b.nevecs, b.nstd, DT, NMD)),
+            nevecs=None, nstd=None) for i, b in enumerate(jbaths))
+        sys_j = JMD.GLESystem(dyn=dyn, baths=bs, mask=jnp.ones(NPH), dt=DT,
+                              nph=NPH, ml=1, nmd=NMD)
+        st = JMD.thermal_init(keys[j], sys_j, hw, U, T)
+        _, ys = JMD.run_segment(sys_j, st, nsteps)
+        want.append(np.asarray(ys["cur"])[skip:].mean(axis=0))
+
+    def injected(facs, seed, lo, hi, nm, device, dtype):
+        rs = [torch.as_tensor(np.stack([
+            np.random.default_rng(s).standard_normal(tuple(std.shape))
+            for s in seeds[i][lo:hi]])) for i, (_, std) in enumerate(facs)]
+        return rs, torch.as_tensor(us[lo:hi])
+
+    monkeypatch.setattr(TE, "draw_chunk", injected)
+    r = _torch_runner(tmp_path)
+    r.baths, r.ml, r.block = _plain_baths("electron_local", torch.float64,
+                                          TB), 1, None
+    means = r.RunEnsemble(ntraj, nsteps=nsteps, equil_frac=equil, chunk=2)
+    np.testing.assert_allclose(means, np.stack(want), rtol=1e-9, atol=1e-14)
+    row = (tmp_path / "kappa.300.bath2.run1.dat").read_text().split()
+    np.testing.assert_allclose(float(row[2]), want[1][2] * 243414.0,
+                               rtol=1e-5, atol=1e-6)

@@ -121,3 +121,167 @@ def test_multi_trajectory_tiles_match_cpu(cuda, tile):
     assert ntraj % tile
     assert K1.tile_size(ntraj, 36, 2, 6, cuda) == tile
     _card_vs_cpu(cuda, ntraj, False, 40)
+
+
+# --- K6 conv_tails and K7 bath_force (the plain step) -------------------------
+def _phonon(device, dtype, cats, ml, nmd=32, T=300.0):
+    nc = len(cats)
+    gwl = np.linspace(0.0, 0.6, 16)
+    gam = np.array([np.eye(nc) * 0.02 * np.exp(-(w / 0.3) ** 2)
+                    for w in gwl])
+    return TB.phbath(T, cats, 0.3, 32, 0.4, nmd, ml=ml, gamma=gam, gwl=gwl,
+                     dtype=dtype, device=device, factorize=False)
+
+
+def _electron(device, dtype, cats, biased, nmd=32, seed=0):
+    nc = len(cats)
+    rng = np.random.default_rng(seed)
+    a = 0.05 * rng.normal(size=(nc, nc))
+    extra = {}
+    if biased:
+        extra = dict(bias=0.2, exim=0.02 * rng.normal(size=(nc, nc)),
+                     zeta1=0.02 * rng.normal(size=(nc, nc)),
+                     zeta2=0.02 * rng.normal(size=(nc, nc)))
+    return TB.ebath(cats, 300.0, 0.4, nmd, wmax=1.0,
+                    efric=a @ a.T + 0.02 * np.eye(nc), dtype=dtype,
+                    device=device, factorize=False, **extra)
+
+
+@pytest.mark.parametrize("ntraj,ml,head", [(1, 13, 0), (2, 11, 9),
+                                           (7, 30, 29), (37, 1000, 411)])
+def test_conv_tails_matches_twin(cuda, ntraj, ml, head):
+    """Ragged K splits (ml - 2 not a multiple of the 8 taps a CTA takes),
+    one-, two- and four-trajectory tiles with ragged last tiles, a
+    non-contiguous bath, and a ring longer than the kernel read across
+    its wrap."""
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+    baths = [_phonon(cuda, torch.float32, range(3, 9), ml),
+             _phonon(cuda, torch.float32, [20, 2, 17, 11], ml - 1)]
+    gen = torch.Generator(device=cuda).manual_seed(ntraj)
+    ring = torch.randn((ntraj, ml + 2, 24), device=cuda, generator=gen)
+    before = K6.launches
+    got = [t.clone() for t in K6.ConvTailsCuda(ring, baths)(head)]
+    want = K6.conv_tails_plain(ring, head, baths)
+    ref64 = K6.conv_tails_plain(
+        ring.double().cpu(), head,
+        [b.replace(kernel=b.kernel.double().cpu()) for b in baths])
+    torch.cuda.synchronize()
+    assert K6.launches == before + 1
+    for g, w, r in zip(got, want, ref64):
+        assert g.shape == (ntraj, w.shape[1], 2)
+        assert _rel(g, w) < 1e-5 and _rel(g, r) < 1e-5
+
+
+def _k7_case(device, dtype, kinds, ntraj, nph=24, nmd=32):
+    """Baths of the listed kinds on disjoint, partly non-contiguous DOF
+    sets, with random noise; kind is ("phonon", ml), ("local",),
+    ("electron",) or ("biased",)."""
+    sets = [[0, 1, 2, 3], [23, 5, 21, 7, 9], [10, 12], [14, 15, 16]]
+    baths = []
+    rng = np.random.default_rng(len(kinds) + ntraj)
+    for k, cats in zip(kinds, sets):
+        if k[0] == "phonon":
+            b = _phonon(device, dtype, cats, k[1], nmd)
+        elif k[0] == "local":
+            b = TB.phbath(300.0, cats, 0.2, 32, 0.4, nmd, dtype=dtype,
+                          device=device, factorize=False)
+        else:
+            b = _electron(device, dtype, cats, k[0] == "biased", nmd)
+        noise = rng.normal(size=(ntraj, nmd, len(cats)))
+        baths.append(b.replace(noise=torch.as_tensor(noise, dtype=dtype,
+                                                     device=device)))
+    return baths
+
+
+@pytest.mark.parametrize("kinds", [
+    (("phonon", 12), ("local",), ("electron",), ("biased",)),
+    (("phonon", 2), ("biased",)),
+    (("electron",), ("electron",))])
+@pytest.mark.parametrize("tile", [1, 2, 8])
+def test_bath_force_matches_twin(cuda, kinds, tile):
+    """Predictor, corrector and last corrector against the twins on the
+    same tensors: every bath kind, bias on and off, non-contiguous
+    cids, tiles of one, two and eight trajectories (ragged)."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    nsm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ntraj = {1: 3, 2: 4 * nsm + 1, 8: 16 * nsm + 3}[tile]
+    assert K7.tile_size(ntraj, cuda) == tile
+    nph, nmd = 24, 32
+    baths = _k7_case(cuda, torch.float32, kinds, ntraj, nph, nmd)
+    gen = torch.Generator(device=cuda).manual_seed(tile)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=cuda, generator=gen)
+
+    p, q, pf, pf2, x = (rnd(ntraj, nph) for _ in range(5))
+    mask = torch.ones(nph, device=cuda)
+    mask[[4, 19]] = 0.0
+    mlr = max(b.ml for b in baths) + 1
+    ring = rnd(ntraj, mlr, nph)
+    tails = [rnd(ntraj, b.nc, 2) if b.ml > 2 else None for b in baths]
+    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda)
+    res = {}
+    for name, run in (("kernel", force), ("twin", None)):
+        rg = ring.clone()
+        cur = torch.zeros((ntraj, 3, len(baths)), device=cuda)[:, 1]
+        etot = torch.zeros((ntraj, 5), device=cuda)[:, 2]
+        fbs = [torch.zeros((ntraj, b.nc), device=cuda) for b in baths]
+        f_out = torch.zeros((ntraj, nph), device=cuda)
+        if run is not None:
+            before = K7.launches
+            ph, qt = run.pred(p, q, pf, rg, 1, 0, tails, 7, cur, etot, fbs)
+            pc, _ = run.corr(x, qt, pf2, p, ph, tails, 8)
+            pl, ql = run.corr(x, qt, pf2, p, ph, tails, 8, mask=mask,
+                              f_out=f_out)
+            torch.cuda.synchronize()
+            assert K7.launches == before + 3
+        else:
+            ph, qt = K7.pred_plain(p, q, pf, rg, 1, 0, force.ops, tails, 7,
+                                   0.4, cur, etot, fbs)
+            pc, _ = K7.corr_plain(x, qt, pf2, p, ph, force.ops, tails, 8,
+                                  0.4)
+            pl, ql = K7.corr_plain(x, qt, pf2, p, ph, force.ops, tails, 8,
+                                   0.4, mask, f_out)
+        res[name] = dict(ph=ph, qt=qt, pc=pc, pl=pl, ql=ql, cur=cur,
+                         etot=etot, f=f_out, ring=rg,
+                         **{f"fb{i}": fb for i, fb in enumerate(fbs)})
+    for k, v in res["twin"].items():
+        assert _rel(res["kernel"][k], v) < 1e-5, k
+
+
+@pytest.mark.parametrize("ntraj", [1, 3])
+def test_run_segment_card_matches_cpu(cuda, ntraj):
+    """The plain step with K6 and K7 on the card (float32) against the
+    twins on the CPU (float64): every bath kind, a mask, all outputs."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+    nph, nmd = 24, 32
+    kinds = (("phonon", 12), ("local",), ("biased",), ("electron",))
+    out = {}
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        baths = _k7_case(dev, dtype, kinds, ntraj, nph, nmd)
+        baths = [b.replace(noise=0.02 * b.noise) for b in baths]
+        mask = torch.ones(nph, dtype=dtype, device=dev)
+        mask[[4, 19]] = 0.0
+        system = TMD.GLESystem(
+            dyn=chain_dynmat(nph, 0.05, dtype=dtype).to(dev),
+            baths=tuple(baths), mask=mask, dt=0.4, nph=nph, ml=12, nmd=nmd,
+            savep=True, saveq=True, savef=True)
+        rng = np.random.default_rng(5)
+        st = TMD.initial_state(system, ntraj, dtype=dtype).replace(
+            p=torch.as_tensor(0.05 * rng.standard_normal((ntraj, nph)),
+                              dtype=dtype, device=dev) * mask,
+            phis=torch.as_tensor(0.05 * rng.standard_normal(
+                (ntraj, 12, nph)), dtype=dtype, device=dev))
+        k6, k7 = K6.launches, K7.launches
+        fin, ys = TMD.run_segment(system, st, 80, t0=5)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert K6.launches == k6 + 80 and K7.launches == k7 + 240
+        out[dev if dev == "cpu" else "cuda"] = (fin, ys)
+    (fg, yg), (fc, yc) = out["cuda"], out["cpu"]
+    for a, b in ((fg.p, fc.p), (fg.q, fc.q), (fg.phis, fc.phis),
+                 (fg.qhis, fc.qhis)):
+        assert _rel(a, b) < 1e-4
+    for k in yc:
+        assert _rel(yg[k], yc[k]) < 1e-4, k

@@ -52,8 +52,10 @@ def test_summarise_synthetic_trace(tmp_path):
 
 
 def test_profile_spans_cover_run_ensemble(tmp_path):
-    """Every span of the profile wraps a function that RunEnsemble
-    really calls, and the wrappers come off again."""
+    """Every span of the profile wraps a function that the profiled
+    workloads (blocked and plain RunEnsemble, md.Run) really call, and
+    the wrappers come off again. The K6/K7 spans wrap the launches,
+    which happen only on the card."""
     nmd, dt, nat = 32, 0.4, 4
     gwl = np.linspace(0.0, 0.6, 16)
     gam = np.array([np.eye(3) * 0.02 * np.exp(-(w / 0.3) ** 2)
@@ -72,6 +74,10 @@ def test_profile_spans_cover_run_ensemble(tmp_path):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             r.RunEnsemble(3, nsteps=16, block=8)
+            r.block = None
+            r.RunEnsemble(3, nsteps=16)
+            r.npie = 2
+            r.Run()
     finally:
         undo()
     assert (TMD.md._write_kappa_files, TMD.gle_block) == before
@@ -79,7 +85,9 @@ def test_profile_spans_cover_run_ensemble(tmp_path):
     prof.export_chrome_trace(path)
     spans = PE.summarise(path, 1.0)["spans"]
     assert set(spans) == set(PE.SPANS)
-    assert all(v["calls"] > 0 for v in spans.values()), spans
+    card_only = {"K6_conv_tails", "K7_bath_force"}
+    assert [k for k, v in spans.items()
+            if k not in card_only and not v["calls"]] == []
     assert spans["K1_gle_block"]["calls"] == 2
     assert spans["K2_block_corr"]["calls"] == 4
 
@@ -112,3 +120,33 @@ def test_primary_block_operands_cpu():
     assert out.cur.shape == (2, P.BLOCK, 2) and out.etot.shape == (2, P.BLOCK)
     for x in (out.p, out.q, out.cur, out.etot):
         assert torch.isfinite(x).all()
+
+
+def test_flagship_setup_cpu():
+    """The harmonic flagship at its full widths: 603 DOFs, two electron
+    baths of 150 DOFs at T (1 +- delta/2), 120 fixed DOFs, and the chunk
+    shapes of the plain-path RunEnsemble at 128 and 1024 trajectories
+    under the 40 GB budget."""
+    from sclmd_tpu_torch.tools import flagship as F
+    r = F.flagship_runner(torch.float32, "cpu", tempfile.mkdtemp())
+    system = r._build_system()
+    assert system.nph == 603 and system.ml == 1 and system.nmd == F.NMD
+    assert [b.nc for b in r.baths] == [150, 150]
+    assert [b.T for b in r.baths] == [315.0, 285.0]
+    assert int((system.mask == 0).sum()) == 120
+    assert F.chunk_sizes(system, 128) == [128]
+    assert F.chunk_sizes(system, 1024) == [1024]
+    sw = F.flagship_runner(torch.float32, "cpu", tempfile.mkdtemp(),
+                           temps=(285.0, 315.0))
+    assert [b.T for b in sw.baths] == [285.0, 315.0]
+
+
+def test_card_scripts_refuse_without_cuda(monkeypatch):
+    """The measurement scripts fail, and do not fall back to the CPU,
+    where there is no card."""
+    from sclmd_tpu_torch.tools import plain_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        plain_bench.main()
+    with pytest.raises(SystemExit, match="CUDA"):
+        PE.main(["--out", "unused"])
