@@ -11,17 +11,22 @@ not 0 and no result line is printed):
 3. K2 ``block_corr_freq`` against its plain twin at the primary shapes
    (nf 1025, nc 90), at every chunk size phase 5 runs (256 and 512
    trajectories, from ``auto_chunk``);
-4. K1 ``gle_block`` against its plain twin over one 256-step block at
-   the same chunk sizes, which reach one- and two-trajectory tiles;
+4. K1 at the same chunk sizes: the near-tap kernel (``gle_near``, one
+   sub-block) and the far-tap kernel (``gle_far``, one update) each
+   against its twin on the same tensors, then one 256-step block of the
+   pair (``gle_block_cuda``) against the whole-block twin
+   ``gle_block_plain``; the sizes reach two- and four-trajectory tiles;
 5. the main path: ``md.md`` with two phonon baths, then
    ``RunEnsemble(256)`` and ``RunEnsemble(1024)`` at nsteps 2048,
    block 256, after one warm-up call of each, with the kernels' launch
    counters read around it;
 6. ``fused_chunk`` with 4 trajectories x 512 steps and injected draws,
    on the card (kernels) and on the CPU (plain twins, float64);
-7. kernel and twin times (CUDA events): K1 and K2 at each chunk size,
-   K6 at the primary shapes for one trajectory, K7's predictor at the
-   flagship shapes at each chunk size of phase 10;
+7. kernel, twin and library times (CUDA events) at each chunk size: K1's
+   near and far kernels over one block (all their launches of a block),
+   K2 per call; K6 at the primary shapes for one trajectory, K7's
+   predictor at the flagship shapes at each chunk size of phase 10;
+   with the least time the card could take for each (``bound_ms``);
 8. K6 ``conv_tails`` and K7 ``bath_force`` against their twins: K6 at
    the primary shapes for one trajectory and a ragged batch of 37; K7
    at the flagship shapes at each chunk size of phase 10, on a biased
@@ -45,7 +50,10 @@ dt 0.25/0.658, T 300 K +- 5 %) and its harmonic flagship
 (``sclmd_tpu_torch.tools.flagship``: the 201-atom C/H junction, nph 603,
 two electron baths of 150 DOFs, 120 DOFs fixed, nmd 1024). The line
 before the last is the card's name and power limit; the last line is
-the result JSON.
+the result JSON; the line before it lists every kernel with its
+launches on the main path, error against its twin, time, twin time,
+library time (one PyTorch call computing the same function, where there
+is one) and bound.
 """
 
 import json
@@ -66,6 +74,18 @@ import torch
 RTOL = 1e-4
 SIZES = (256, 1024)     # RunEnsemble trajectory counts of phase 5
 FLAG_SIZES = (128, 1024)  # plain-path RunEnsemble counts of phase 10
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W):
+# float32 outside the tensor cores, TF32 on them, and HBM bandwidth. A
+# bound is the larger of the operations over the peak of their type and
+# the bytes over HBM's rate; a 3xTF32 kernel (K2, the far taps) does
+# three TF32 products for each float32 product
+PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
+PEAK_HBM = 3.35e12
+
+
+def bound_ms(ops, nbytes, peak=PEAK_F32):
+    return 1e3 * max(ops / peak, nbytes / PEAK_HBM)
 
 
 def rel_err(a, b):
@@ -98,7 +118,6 @@ def main():
     import sclmd_tpu_torch
     from sclmd_tpu_torch.kernels import block_corr as K2
     from sclmd_tpu_torch.kernels import build
-    from sclmd_tpu_torch.kernels import conv_tails as K6
     from sclmd_tpu_torch.kernels import gle_block as K1
     from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
     from sclmd_tpu_torch.tools.primary import (BLOCK, NC, NMD, NPH, T,
@@ -137,33 +156,40 @@ def main():
     r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
     shapes = sorted({n for ntraj in SIZES
                      for n in chunk_sizes(r._build_system(), ntraj)})
-    operands, k1_abs, k2_abs, tiles = {}, 0.0, 0.0, {}
+    operands, tiles = {}, {}
+    errs = {"block_corr_freq": 0.0, "gle_near": 0.0, "gle_far": 0.0}
     for n in shapes:
         _, args, corr = block_operands(r, n, 7, gen)
         khat, hhat = corr[0]
         operands[n] = (args, khat, hhat)
         k2_rel, err = rel_err(K2.block_corr_freq_cuda(khat, hhat),
                               K2.block_corr_freq_plain(khat, hhat))
-        k2_abs = max(k2_abs, err)
+        errs["block_corr_freq"] = max(errs["block_corr_freq"], err)
         print(json.dumps({"phase": 3, "shape": list(hhat.shape),
                           "rel_err": k2_rel, "max_abs_err": err,
                           "rtol": RTOL}), flush=True)
         assert k2_rel <= RTOL, f"K2 disagrees with its twin: {k2_rel}"
 
-        tiles[n] = K1.tile_size(n, NPH, 2, NC, dev)
-        k1_out = K1.gle_block_cuda(*args)
-        k1_ref = K1.gle_block_plain(*args)
-        k1_errs = {name: rel_err(getattr(k1_out, name),
-                                 getattr(k1_ref, name))
+        sub = K1.sub_steps(BLOCK)
+        tiles[n] = K1.tile_size(n, NPH, 2, NC, sub, dev)
+        pair = check_k1(args, sub, tiles[n], gen)
+        for k in ("gle_near", "gle_far"):
+            errs[k] = max(errs[k], pair[k][1])
+        out, ref = K1.gle_block_cuda(*args), K1.gle_block_plain(*args)
+        k1_errs = {name: rel_err(getattr(out, name), getattr(ref, name))
                    for name in ("p", "q", "pf", "qprev", "cur", "etot")}
-        for i, (a_, b_) in enumerate(zip(k1_out.rings, k1_ref.rings)):
+        for i, (a_, b_) in enumerate(zip(out.rings, ref.rings)):
             k1_errs[f"ring{i}"] = rel_err(a_, b_)
         k1_rel = max(v[0] for v in k1_errs.values())
-        k1_abs = max(k1_abs, max(v[1] for v in k1_errs.values()))
-        print(json.dumps({"phase": 4, "ntraj": n, "tile": tiles[n],
-                          "rel_err_max": k1_rel, "rtol": RTOL}), flush=True)
-        assert k1_rel <= RTOL, f"K1 disagrees with its twin: {k1_errs}"
-        del k1_out, k1_ref
+        print(json.dumps({"phase": 4, "ntraj": n, "sub": sub,
+                          "tile": tiles[n],
+                          "near_rel_err": pair["gle_near"][0],
+                          "far_rel_err": pair["gle_far"][0],
+                          "block_rel_err_max": k1_rel, "rtol": RTOL}),
+              flush=True)
+        assert max(k1_rel, pair["gle_near"][0], pair["gle_far"][0]) <= \
+            RTOL, f"K1 disagrees with its twins: {pair}, {k1_errs}"
+        del out, ref
     # the kernel's multi-trajectory tiles (per-tile indexing, ragged
     # tiles) are on the main path at these sizes on a 132-SM card
     assert max(tiles.values()) > 1, tiles
@@ -187,9 +213,9 @@ def main():
         e2e[ntraj] = {"s": wall, "traj_steps_per_s": ntraj * NMD / wall,
                       "J_left": float(means[:, 0].mean()),
                       "J_right": float(means[:, 1].mean())}
-    launches = {"gle_block": K1.launches, "block_corr_freq": K2.launches}
-    assert launches["gle_block"] > 0 and launches["block_corr_freq"] > 0, \
-        launches
+    launches = {"gle_near": K1.launches_near, "gle_far": K1.launches_far,
+                "block_corr_freq": K2.launches}
+    assert min(launches.values()) > 0, launches
     nfiles = len([f for f in os.listdir(outdir) if f.startswith("kappa.")])
     assert nfiles == max(SIZES) * 2, nfiles
     print(json.dumps({"phase": 5, "launches": launches, "e2e": e2e}),
@@ -215,27 +241,14 @@ def main():
                       "q_rel": q_rel, "rtol": RTOL}), flush=True)
     assert max(cur_rel, p_rel, q_rel) <= RTOL, (sg, sc)
 
-    # 7. kernel and twin times at each chunk shape (phase 4's operands;
-    # K6 and K7 at the operands phase 8 checks)
+    # 7. kernel, twin and library times at each chunk shape (phase 4's
+    # operands; K6 and K7 at the operands phase 8 checks)
     plain_ops = plain_step_operands(dev)
-    times = {}
-    for n, (args, khat, hhat) in operands.items():
-        times[n] = {
-            "gle_block": cuda_ms(lambda: K1.gle_block_cuda(*args), 5),
-            "gle_block_plain": cuda_ms(lambda: K1.gle_block_plain(*args), 2),
-            "block_corr_freq": cuda_ms(
-                lambda: K2.block_corr_freq_cuda(khat, hhat), 20),
-            "block_corr_freq_plain": cuda_ms(
-                lambda: K2.block_corr_freq_plain(khat, hhat), 20)}
-    times["conv_tails"] = {
-        n: {"kernel": cuda_ms(lambda: k6(head), 50),
-            "plain": cuda_ms(lambda: K6.conv_tails_plain(ring, head, baths),
-                             20)}
-        for n, (ring, head, baths, k6) in plain_ops["k6"].items()}
-    times["bath_force_pred"] = {
-        n: {"kernel": cuda_ms(lambda: pred_call(c, c.force), 50),
-            "plain": cuda_ms(lambda: pred_call(c, None), 20)}
-        for n, c in plain_ops["k7_flagship"].items()}
+    times = {n: k1_k2_times(*ops) for n, ops in operands.items()}
+    times["conv_tails"] = {n: k6_times(*ops)
+                           for n, ops in plain_ops["k6"].items()}
+    times["bath_force_pred"] = {n: k7_times(c)
+                                for n, c in plain_ops["k7_flagship"].items()}
     print(json.dumps({"phase": 7, "ms": times}), flush=True)
 
     # 8. K6 and K7 against their twins
@@ -250,34 +263,210 @@ def main():
     t = times[shapes[0]]
     k6_t = times["conv_tails"][1]
     k7_t = times["bath_force_pred"][min(times["bath_force_pred"])]
+
+    def row(name, source, replaces, launches_, err, tm):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": tm["kernel"],
+                "plain_ms": tm["plain"], "bound_ms": tm["bound"],
+                "bound_by": tm["bound_by"], "library_ms": tm["library"]}
+
     kernels = [
-        {"name": "gle_block", "route": "cuda",
-         "source": "sclmd_tpu_torch/csrc/gle_block.cu",
-         "replaces": "sclmd_tpu/md.py:532", "launches": launches["gle_block"],
-         "max_abs_err": k1_abs, "ms": t["gle_block"],
-         "plain_ms": t["gle_block_plain"]},
-        {"name": "block_corr_freq", "route": "cuda",
-         "source": "sclmd_tpu_torch/csrc/block_corr.cu",
-         "replaces": "sclmd_tpu/baths.py:593",
-         "launches": launches["block_corr_freq"], "max_abs_err": k2_abs,
-         "ms": t["block_corr_freq"], "plain_ms": t["block_corr_freq_plain"]},
-        {"name": "conv_tails", "route": "cuda",
-         "source": "sclmd_tpu_torch/csrc/conv_tails.cu",
-         "replaces": "sclmd_tpu/baths.py:548",
-         "launches": run_launches["conv_tails"], "max_abs_err": k6_abs,
-         "ms": k6_t["kernel"], "plain_ms": k6_t["plain"]},
-        {"name": "bath_force", "route": "cuda",
-         "source": "sclmd_tpu_torch/csrc/bath_force.cu",
-         "replaces": "sclmd_tpu/baths.py:559",
-         "launches": run_launches["bath_force"] + ens_launches["bath_force"],
-         "max_abs_err": k7_abs, "ms": k7_t["kernel"],
-         "plain_ms": k7_t["plain"]},
+        row("gle_near", "sclmd_tpu_torch/csrc/gle_block.cu",
+            "sclmd_tpu/md.py:532", launches["gle_near"], errs["gle_near"],
+            t["gle_near"]),
+        row("gle_far", "sclmd_tpu_torch/csrc/gle_far.cu",
+            "sclmd_tpu/md.py:551", launches["gle_far"], errs["gle_far"],
+            t["gle_far"]),
+        row("block_corr_freq", "sclmd_tpu_torch/csrc/block_corr.cu",
+            "a5170d2:sclmd_tpu/ops/kernels.py:54",
+            launches["block_corr_freq"], errs["block_corr_freq"],
+            t["block_corr_freq"]),
+        row("conv_tails", "sclmd_tpu_torch/csrc/conv_tails.cu",
+            "a5170d2:sclmd_tpu/ops/kernels.py:127",
+            run_launches["conv_tails"], k6_abs, k6_t),
+        row("bath_force", "sclmd_tpu_torch/csrc/bath_force.cu",
+            "a5170d2:sclmd_tpu/ops/kernels.py:98",
+            run_launches["bath_force"] + ens_launches["bath_force"],
+            k7_abs, k7_t),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# --- K1 (near and far taps) and K2 ------------------------------------------
+def check_k1(args, sub, tt, gen):
+    """Phase 4: K1's near kernel over the second sub-block of a block and
+    its far kernel over the update after it, each against its twin on the
+    same tensors (earlier rows of the ring random). Returns per kernel
+    (relative, absolute) largest error."""
+    from sclmd_tpu_torch.kernels import gle_block as K1
+    p, q, pf, dyn, mask, baths, t0, nmd, dt, free, block = args
+    got, want = (K1.BlockState(p, q, pf, baths, block) for _ in range(2))
+    for r0, r1 in zip(got.rings, want.rings):
+        r0.normal_(generator=gen).mul_(0.05)
+        r1.copy_(r0)
+    b0, ns = sub, min(sub, block - sub - 1)
+    run = (dyn, mask, baths, t0, nmd, dt, free, block, b0, ns)
+    K1.gle_near_cuda(got, *run, sub=sub, tt=tt)
+    K1.gle_near_plain(want, *run)
+    # (qprev is written at the block's last step only)
+    near = [rel_err(getattr(got, k), getattr(want, k))
+            for k in ("p", "q", "pf", "cur", "etot")]
+    near += [rel_err(g, w) for g, w in zip(got.rings, want.rings)]
+    for g, w in zip(got.rings, want.rings):   # the far kernel's own error
+        g.copy_(w)
+    K1.gle_far_cuda(baths, got.rings, got.Os, block, b0, ns)
+    for b, r, O in zip(baths, want.rings, want.Os):
+        K1.gle_far_plain(b.kin, r, O, block, b0, ns)
+    far = [rel_err(g, w) for g, w in zip(got.Os, want.Os)]
+    return {k: (max(e[0] for e in v), max(e[1] for e in v))
+            for k, v in (("gle_near", near), ("gle_far", far))}
+
+
+def _timed(kernel, plain, library, flops, nbytes, reps, plain_reps,
+           tf32x3=False):
+    """Times and the bound; ``tf32x3``: the kernel's products run as
+    three TF32 tensor-core products each."""
+    ops, peak = (3 * flops, PEAK_TF32) if tf32x3 else (flops, PEAK_F32)
+    return {"kernel": cuda_ms(kernel, reps),
+            "plain": cuda_ms(plain, plain_reps),
+            "library": None if library is None else cuda_ms(library, reps),
+            "bound": bound_ms(ops, nbytes, peak), "flops": flops,
+            "bytes": nbytes,
+            "bound_by": "operations" if ops / peak >= nbytes / PEAK_HBM
+            else "bytes"}
+
+
+def k1_k2_times(args, khat, hhat):
+    """Phase 7 at one chunk shape: K1's near and far kernels over one
+    block (all the launches of each in a block), K2 per call; each with
+    its twin, the library call where there is one, and its bound from
+    this run's shapes (matrix products counted; each input read once and
+    each output written once)."""
+    from sclmd_tpu_torch.kernels import block_corr as K2
+    from sclmd_tpu_torch.kernels import gle_block as K1
+    p, q, pf, dyn, mask, baths, t0, nmd, dt, free, block = args
+    ntraj, nph = p.shape
+    ncs = [b.kin.shape[0] for b in baths]
+    sub = K1.sub_steps(block)
+    tt = K1.tile_size(ntraj, nph, len(baths), max(ncs), sub, p.device)
+    subs = K1.sub_blocks(block)
+    st = K1.BlockState(p, q, pf, baths, block)
+    for r in st.rings:
+        r.normal_().mul_(0.05)
+
+    def near(kernel):
+        s_ = K1.BlockState(p, q, pf, baths, block)
+        for b0, ns in subs:
+            if kernel:
+                K1.gle_near_cuda(s_, dyn, mask, baths, t0, nmd, dt, free,
+                                 block, b0, ns, sub, tt)
+            else:
+                K1.gle_near_plain(s_, dyn, mask, baths, t0, nmd, dt, free,
+                                  block, b0, ns)
+
+    def far(kernel):
+        for b0, ns in subs[:-1]:
+            if kernel:
+                K1.gle_far_cuda(baths, st.rings, st.Os, block, b0, ns)
+            else:
+                for b, r, O in zip(baths, st.rings, st.Os):
+                    K1.gle_far_plain(b.kin, r, O, block, b0, ns)
+
+    # the library form of the far taps: one torch.matmul per update and
+    # bath on the block-Toeplitz operand and the ring rows, both
+    # materialised beforehand (not timed)
+    gemms = []
+    for b, r, nc in zip(baths, st.rings, ncs):
+        taps = b.kin.view(nc, block + 1, nc).permute(1, 0, 2)
+        for b0, ns in subs[:-1]:
+            s_ = torch.arange(b0 + ns, block + 1, device=p.device)
+            i_ = torch.arange(ns, device=p.device)
+            A = taps[s_[:, None] - b0 - i_[None, :] - 1]  # (s, i, a, b)
+            A = A.permute(0, 2, 1, 3).reshape(-1, ns * nc).contiguous()
+            Bm = r[:, block - 1 - b0 - i_].reshape(ntraj, ns * nc).T
+            gemms.append((A, Bm.contiguous()))
+
+    def far_library():
+        for A, Bm in gemms:
+            torch.matmul(A, Bm)
+
+    f_near = ntraj * sum(
+        2 * nph * nph * (1 if free else 2) +
+        sum(2 * nc * nc * (2 * (s % sub) + 1) + 6 * nc * nc for nc in ncs)
+        for s in range(block))
+    b_near = 4 * (nph * nph + nph + 7 * ntraj * nph
+                  + ntraj * block * (len(baths) + 1)
+                  + sum(sub * nc * nc + nc * nc + 2 * ntraj * (block + 1) * nc
+                        + ntraj * block * nc for nc in ncs))
+    f_far = sum(2 * (block + 1 - b0 - ns) * nc * ns * nc * ntraj
+                for b0, ns in subs[:-1] for nc in ncs)
+    b_far = 4 * sum(block * nc * nc + ntraj * block * nc
+                    + 2 * ntraj * (block + 1) * nc for nc in ncs)
+    nf, nc2 = khat.shape[0], khat.shape[1]
+    out = {
+        "sub": sub, "tile": tt,
+        "gle_near": _timed(lambda: near(True), lambda: near(False), None,
+                           f_near, b_near, 3, 1),
+        "gle_far": _timed(lambda: far(True), lambda: far(False),
+                          far_library, f_far, b_far, 3, 1, tf32x3=True),
+        "block_corr_freq": _timed(
+            lambda: K2.block_corr_freq_cuda(khat, hhat),
+            lambda: K2.block_corr_freq_plain(khat, hhat),
+            lambda: torch.einsum("fab,tfb->tfa", khat, torch.conj(hhat)),
+            8 * nf * ntraj * nc2 * nc2,
+            8 * (nf * nc2 * nc2 + 2 * ntraj * nf * nc2), 20, 20,
+            tf32x3=True),
+        "gle_block_pair": cuda_ms(lambda: K1.gle_block_cuda(*args), 3),
+        "gle_block_plain": cuda_ms(lambda: K1.gle_block_plain(*args), 1),
+    }
+    del gemms
+    return out
+
+
+def k6_times(ring, head, baths, k6):
+    """K6 at one trajectory count: kernel, twin, and the library form,
+    one torch.matmul per bath of the tap slab with the history unrolled
+    as the JAX package lays it out (materialised beforehand)."""
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+    ntraj, mlr, _ = ring.shape
+    gemms = []
+    for b in baths:
+        nc, ml = b.nc, b.ml
+        idx = (head + torch.arange(ml, device=ring.device)) % mlr
+        old = ring.index_select(1, idx)[:, :, b.cols]
+        Bm = torch.stack([old[:, 1:ml - 1], old[:, 0:ml - 2]], dim=3)
+        gemms.append((b.kernel_im[:, 2 * nc:].contiguous(),
+                      Bm.reshape(ntraj, (ml - 2) * nc, 2).contiguous()))
+
+    def library():
+        for A, Bm in gemms:
+            torch.matmul(A, Bm)
+
+    flops = sum(ntraj * 2 * 2 * b.nc * (b.ml - 2) * b.nc for b in baths)
+    nbytes = 4 * sum(b.nc * (b.ml - 2) * b.nc + ntraj * (b.ml - 1) * b.nc
+                     + 2 * ntraj * b.nc for b in baths)
+    return _timed(lambda: k6(head),
+                  lambda: K6.conv_tails_plain(ring, head, baths), library,
+                  flops, nbytes, 50, 20)
+
+
+def k7_times(c):
+    """K7's predictor at one chunk shape: kernel and twin (no single
+    library call computes it); bound from its matrices and the state
+    vectors it reads and writes."""
+    mats = [[m for m in (op.MvT, op.MhT, op.MqT) if m is not None]
+            for op in c.force.ops]
+    ncs = [op.bath.nc for op in c.force.ops]
+    flops = c.ntraj * sum(2 * nc * nc * len(m) for nc, m in zip(ncs, mats))
+    nbytes = 4 * (sum(m.numel() for ms in mats for m in ms)
+                  + c.ntraj * (6 * c.nph + sum(ncs) + len(ncs) + 1))
+    return _timed(lambda: pred_call(c, c.force), lambda: pred_call(c, None),
+                  None, flops, nbytes, 50, 20)
 
 
 # --- the plain GLE step: K6 and K7 -------------------------------------------

@@ -31,4 +31,17 @@ def precision_pinned() -> bool:
             and torch.get_float32_matmul_precision() == "highest")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: ``device`` as given, else the first
+    CUDA card. Without a card a default raises instead of falling back to
+    the CPU; a CPU run asks for it with ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "sclmd_tpu_torch runs on a CUDA card by default and none is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", 0)
+
+
 pin_precision()

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sclmd_tpu_torch import resolve_device
 from sclmd_tpu_torch.ops import noise as NZ
 from sclmd_tpu_torch.ops.functions import (antisymmetrize, chkShape,
                                            equ_spectrum, flinterp_np,
@@ -158,12 +159,14 @@ def ebath(cats, T, dt, nmd, wmax=None, nw=None, bias=0.0,
           factorize: bool = True) -> EBath:
     """Build an electron bath, as ``sclmd_tpu.baths.ebath``: efric, exip
     and zeta1 are symmetrised, exim and zeta2 antisymmetrised, shapes
-    checked against ``cats``.
+    checked against ``cats``. The matrices go to ``device`` (default:
+    the CUDA card).
 
     Noise factors: an unbiased bath with nc >= 8 has S(w) = a(w) efric,
     so ONE eigh of efric gives them (eigenvectors kept as a zero-stride
     broadcast view, one matrix in memory); otherwise the full
     ``electron_psd`` batch is factorised per frequency."""
+    device = resolve_device(device)
     cats_np = np.asarray(cats, dtype=np.int64)
     nc = int(cats_np.shape[0])
     if efric is None:
@@ -387,8 +390,10 @@ def phbath(T, cats, debye, nw, dt, nmd, ml=None, mcof=2.0,
 
     Modes: sig + gwl (Gamma = -Im Sigma / w), gamma + gwl (used
     directly), else the local Debye model Gamma = (w_D pi / 6) I. The
-    returned bath carries its time-domain kernel on ``device``.
+    returned bath carries its time-domain kernel on ``device`` (default:
+    the CUDA card).
     """
+    device = resolve_device(device)
     if K00 is not None and K01 is not None and V01 is not None:
         raise NotImplementedError(
             "phbath: the K00/K01/V01 lead-block mode needs the decimation "

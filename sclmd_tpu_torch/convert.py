@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sclmd_tpu_torch import resolve_device
 from sclmd_tpu_torch.baths import EBath, PhBath, _contig_start
 from sclmd_tpu_torch.md import GLESystem
 
@@ -26,7 +27,8 @@ def _factor(x):
 def from_jax_bath(b, device=None):
     """A ``sclmd_tpu.baths`` ``EBath`` or ``PhBath`` as the port's (the
     hot-loop matrices and the noise keep their dtype and shape; setup
-    data become host numpy)."""
+    data become host numpy), on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     kind = type(b).__name__
     if kind not in ("EBath", "PhBath"):
         raise TypeError(f"from_jax_bath: unknown bath type {kind}")
@@ -58,7 +60,9 @@ def from_jax_bath(b, device=None):
 
 def from_jax_system(system, device=None) -> GLESystem:
     """A ``sclmd_tpu.md.GLESystem`` (harmonic ``dyn``; electron, local
-    and memory-kernel phonon baths) as the port's ``GLESystem``."""
+    and memory-kernel phonon baths) as the port's ``GLESystem`` on
+    ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     if system.force_fn is not None or system.cf_fn is not None:
         raise NotImplementedError(
             "from_jax_system: force drivers are not ported yet "

@@ -58,8 +58,12 @@ def block_corr_freq_cuda(khat: torch.Tensor,
     if not (khat.is_contiguous() and hhat.is_contiguous()):
         raise ValueError("block_corr_freq: inputs must be contiguous")
     ntraj, nf, nc = hhat.shape
-    out = torch.empty_like(hhat)
     lib = build.load()
+    if nc > lib.block_corr_freq_max_nc():
+        raise ValueError(f"block_corr_freq: baths wider than "
+                         f"{lib.block_corr_freq_max_nc()} DOFs do not fit "
+                         "the kernel's shared memory")
+    out = torch.empty_like(hhat)
     rc = lib.block_corr_freq_f32(
         khat.data_ptr(), hhat.data_ptr(), out.data_ptr(), ntraj, nf, nc,
         torch.cuda.current_stream(khat.device).cuda_stream)

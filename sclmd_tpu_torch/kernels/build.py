@@ -100,10 +100,14 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.block_corr_freq_f32.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.block_corr_freq_f32.restype = ci
-    lib.gle_block_f32.argtypes = [vp, vp]
-    lib.gle_block_f32.restype = ci
-    lib.gle_block_smem_bytes.argtypes = [ci, ci, ci, ci]
-    lib.gle_block_smem_bytes.restype = ci
+    lib.block_corr_freq_max_nc.argtypes = []
+    lib.block_corr_freq_max_nc.restype = ci
+    lib.gle_near_f32.argtypes = [vp, vp]
+    lib.gle_near_f32.restype = ci
+    lib.gle_near_smem_bytes.argtypes = [ci, ci, ci, ci, ci]
+    lib.gle_near_smem_bytes.restype = ci
+    lib.gle_far_f32.argtypes = [vp, vp]
+    lib.gle_far_f32.restype = ci
     lib.conv_tails_f32.argtypes = [vp, vp]
     lib.conv_tails_f32.restype = ci
     lib.bath_force_f32.argtypes = [vp, vp]

@@ -14,7 +14,8 @@ integrators advance the whole batch:
 * ``run_segment_blocked``, the blocked memory-kernel convolution
   (non-local phonon baths only): per block of ``block`` steps kernel K2
   (``block_corr``) once per bath for the pre-block tails, then kernel K1
-  (``gle_block``) for the block's steps.
+  (``gle_block``) for the block's steps: sub-blocks of near-tap steps
+  with far-tap GEMMs between them.
 
 Step structure (the reference's 3-bath-eval / 2-potential-eval scheme):
 
@@ -45,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sclmd_tpu_torch import resolve_device
 from sclmd_tpu_torch import units as U
 from sclmd_tpu_torch.baths import PhBath
 from sclmd_tpu_torch.kernels.bath_force import BathForce
@@ -145,7 +147,8 @@ def set_dyn(dyn, dtype=torch.float64, device=None):
 
     Host numpy float64 (a device f32 eigh + rebuild of a stiff matrix
     leaves negative leakage that grows over long runs); cast to
-    ``dtype`` at the end."""
+    ``dtype`` at the end, on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     dyn = np.asarray(dyn, np.float64)
     dyn = (dyn + dyn.T) / 2
     av, au = np.linalg.eigh(dyn)
@@ -362,7 +365,7 @@ class md:
         self.block = None if block is None else int(block)
         self.md2ang = md2ang
         self.dtype = dtype
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.outdir = outdir
         self.seed = int(seed)
         self._calls = 0

@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sclmd_tpu_torch import resolve_device
 from sclmd_tpu_torch import units as U
 
 
@@ -13,10 +14,12 @@ class HarmonicDriver:
     """Pure-harmonic force engine.
 
     ``dyn``: (nph, nph) dynamical matrix in eV^2; ``axyz``: optional
-    list of [element, x, y, z] rows (angstrom)."""
+    list of [element, x, y, z] rows (angstrom); ``device`` defaults to
+    the CUDA card."""
 
     def __init__(self, dyn, axyz=None, md2ang=U.MD2ANG,
                  dtype=torch.float32, device=None):
+        device = resolve_device(device)
         d = np.asarray(dyn, np.float64)
         self.dyn = torch.as_tensor(0.5 * (d + d.T), dtype=dtype,
                                    device=device)

@@ -1,13 +1,16 @@
-"""Time kernel K1 at each trajectory tile, at the primary shapes.
+"""Time kernel K1 (near- and far-tap kernels) at each sub-block length
+and trajectory tile, at the primary shapes.
 
-    python -m sclmd_tpu_torch.tools.k1_sweep [--ntraj 256 512] [--reps 3]
+    python -m sclmd_tpu_torch.tools.k1_sweep [--ntraj 256 512]
+        [--sub 8 12 16 32 64] [--tiles 1 2 4] [--reps 3]
 
 Needs a CUDA card. For each trajectory count it times one 256-step block
-(CUDA events, mean of ``--reps`` calls after a warm-up) with 1, 2 and 4
-trajectories per CTA, and prints one JSON line per count with the times,
-the tile ``gle_block.tile_size`` picks, and the largest difference of
-each tile's outputs from that tile's (the tile changes no summation
-order, so it is 0). The card's name and power limit come first.
+(CUDA events, mean of ``--reps`` calls after a warm-up) at every
+sub-block length S and trajectory tile, and prints one JSON line per
+count with the milliseconds per block (null where a tile does not fit
+shared memory), the sub-block length and tile the wrappers pick, and
+the largest relative difference of each setting's outputs from the
+whole-block plain twin. The card's name and power limit come first.
 """
 
 import argparse
@@ -17,9 +20,16 @@ import subprocess
 import torch
 
 
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ntraj", type=int, nargs="+", default=[256, 512])
+    ap.add_argument("--sub", type=int, nargs="+",
+                    default=[8, 12, 16, 32, 64])
+    ap.add_argument("--tiles", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -27,7 +37,8 @@ def main(argv=None):
     import tempfile
 
     from sclmd_tpu_torch.kernels import gle_block as K1
-    from sclmd_tpu_torch.tools.primary import (NC, NPH, block_operands,
+    from sclmd_tpu_torch.tools.primary import (BLOCK, NC, NPH,
+                                               block_operands,
                                                primary_runner)
 
     dev = torch.device("cuda", 0)
@@ -36,33 +47,47 @@ def main(argv=None):
                          text=True, check=True).stdout.strip(), flush=True)
     r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
     gen = torch.Generator(device=dev).manual_seed(1)
-    pick = K1.tile_size
-    for n in args.ntraj:
-        _, ops, _ = block_operands(r, n, 7, gen)
-        chosen = pick(n, NPH, 2, NC, dev)
-        ref = K1.gle_block_cuda(*ops)
-        ms, diff = {}, {}
-        for tt in (1, 2, 4):
-            K1.tile_size = lambda *a, _tt=tt: _tt
+
+    def timed(sub, tt):
+        """(block output, ms per block) at sub-block ``sub`` and tile
+        ``tt``; None for a tile past shared memory."""
+        saved = K1.sub_steps, K1.tile_size
+        K1.sub_steps = lambda block: min(block, sub)
+        K1.tile_size = lambda *a: tt
+        try:
             try:
                 out = K1.gle_block_cuda(*ops)
-                diff[tt] = max(float((x - y).abs().max()) for x, y in
-                               zip((out.p, out.q, out.cur, out.etot),
-                                   (ref.p, ref.q, ref.cur, ref.etot)))
                 torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(args.reps):
-                    K1.gle_block_cuda(*ops)
-                stop.record()
-                torch.cuda.synchronize()
-                ms[tt] = start.elapsed_time(stop) / args.reps
-            finally:
-                K1.tile_size = pick
-        print(json.dumps({"ntraj": n, "tile_chosen": chosen,
-                          "ms_per_block": ms, "max_abs_diff": diff}),
-              flush=True)
+            except RuntimeError:
+                return None
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(args.reps):
+                K1.gle_block_cuda(*ops)
+            stop.record()
+            torch.cuda.synchronize()
+            return out, start.elapsed_time(stop) / args.reps
+        finally:
+            K1.sub_steps, K1.tile_size = saved
+
+    for n in args.ntraj:
+        _, ops, _ = block_operands(r, n, 7, gen)
+        ref = K1.gle_block_plain(*ops)
+        sub = K1.sub_steps(BLOCK)
+        chosen = {"sub": sub, "tile": K1.tile_size(n, NPH, 2, NC, sub, dev)}
+        ms, err = {}, {}
+        for sub in args.sub:
+            for tt in args.tiles:
+                key = f"S{sub}_T{tt}"
+                res = timed(sub, tt)
+                ms[key] = err[key] = None
+                if res is not None:
+                    out, ms[key] = res
+                    err[key] = max(_rel(getattr(out, k), getattr(ref, k))
+                                   for k in ("p", "q", "cur", "etot"))
+        print(json.dumps({"ntraj": n, "chosen": chosen,
+                          "ms_per_block": ms, "rel_err": err}), flush=True)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ Needs a CUDA card. For each trajectory count: one warm-up call, one
 untraced call timed on the host clock (``torch.cuda.synchronize`` inside
 the window), then one call under ``torch.profiler`` with a span around
 each layer (draws, noise synthesis, thermal init, the integrators, the
-potential force, K1, K2, K6, K7, the output files). From the trace it
+potential force, K1 with its near- and far-tap launches, K2, K6, K7, the
+output files). From the trace it
 reports:
 
 * ``wall_s``: untraced and traced host wall time of the call;
@@ -51,6 +52,8 @@ SPANS = {
     "run_segment_Run": ("sclmd_tpu_torch.md", "run_segment"),
     "potential_force": ("sclmd_tpu_torch.md:GLESystem", "potential_force"),
     "K1_gle_block": ("sclmd_tpu_torch.md", "gle_block"),
+    "K1_near": ("sclmd_tpu_torch.kernels.gle_block", "gle_near_cuda"),
+    "K1_far": ("sclmd_tpu_torch.kernels.gle_block", "gle_far_cuda"),
     "K2_block_corr": ("sclmd_tpu_torch.kernels.block_corr", "block_corr"),
     "K6_conv_tails": ("sclmd_tpu_torch.kernels.conv_tails:ConvTailsCuda",
                       "__call__"),

@@ -41,7 +41,7 @@ def _both(mode, eta_ad=0.0, nc=4, ml=17):
         sig = -1j * GWL[:, None, None] * _gamma(nc) + 0.01 * _gamma(nc, 3)
         kw.update(sig=sig, gwl=GWL)
     jb = JB.phbath(dtype=jnp.float64, **kw)
-    tb = TB.phbath(dtype=torch.float64, **kw)
+    tb = TB.phbath(dtype=torch.float64, **kw, device="cpu")
     return jb, tb
 
 
@@ -100,35 +100,35 @@ def test_block_corr_matches_jax(block):
 
 def test_from_jax_bath_roundtrip():
     jb, tb = _both("gamma")
-    cb = from_jax_bath(jb)
+    cb = from_jax_bath(jb, device="cpu")
     np.testing.assert_array_equal(cb.kernel.numpy(), tb.kernel.numpy())
     np.testing.assert_array_equal(cb.cids, tb.cids)
     assert (cb.cs, cb.ml, cb.nmd, cb.dt) == (tb.cs, tb.ml, tb.nmd, tb.dt)
     eb = JB.ebath(range(3), 300.0, 0.4, 64, wmax=1.0, efric=np.eye(3) / 60,
                   dtype=jnp.float64)
-    ce = from_jax_bath(eb)
+    ce = from_jax_bath(eb, device="cpu")
     assert isinstance(ce, TB.EBath) and (ce.cs, ce.ml, ce.nc) == (0, 1, 3)
     np.testing.assert_array_equal(ce.efric.numpy(), np.asarray(eb.efric))
     local = from_jax_bath(JB.phbath(300.0, [1, 4], 0.3, 32, 0.4, 64,
-                                    dtype=jnp.float64))
+                                    dtype=jnp.float64), device="cpu")
     assert local.local and local.ml == 1 and local.cs is None
     with pytest.raises(TypeError, match="unknown bath"):
-        from_jax_bath(object())
+        from_jax_bath(object(), device="cpu")
 
 
 def test_lead_block_mode_not_ported():
     k = np.eye(2)
     with pytest.raises(NotImplementedError, match="item 9"):
         TB.phbath(300.0, range(2), 0.3, 32, 0.4, 64, ml=8, K00=k, K01=k,
-                  V01=k)
+                  V01=k, device="cpu")
 
 
 def test_noncontiguous_cids_use_index_columns():
     kw = dict(gamma=_gamma(3), gwl=GWL, ml=5, dtype=torch.float64)
-    tb = TB.phbath(300.0, [0, 2, 5], 0.3, 32, 0.4, 64, **kw)
+    tb = TB.phbath(300.0, [0, 2, 5], 0.3, 32, 0.4, 64, **kw, device="cpu")
     assert tb.cs is None and torch.equal(tb.cols, torch.tensor([0, 2, 5]))
-    assert TB.phbath(300.0, [4, 5, 6], 0.3, 32, 0.4, 64, **kw).cols == \
-        slice(4, 7)
+    assert TB.phbath(300.0, [4, 5, 6], 0.3, 32, 0.4, 64, **kw,
+                     device="cpu").cols == slice(4, 7)
 
 
 def test_wrappers_take_twins_only_on_cpu():

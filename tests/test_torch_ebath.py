@@ -151,7 +151,7 @@ def _ebaths(nc, bias=0.0, which=("exim", "zeta1", "zeta2"), **kw):
     common = dict(cats=range(2, 2 + nc), T=310.0, dt=0.4, nmd=64, wmax=1.0,
                   nw=50, bias=bias, efric=mt["efric"], **extra, **kw)
     return (JB.ebath(dtype=jnp.float64, **common),
-            TB.ebath(dtype=torch.float64, **common))
+            TB.ebath(dtype=torch.float64, **common, device="cpu"))
 
 
 def _assert_bath_match(tb, jb):
@@ -198,17 +198,17 @@ def test_ebath_setters_refactor():
 
 def test_ebath_rejects_bad_shapes():
     with pytest.raises(ValueError, match="efric"):
-        TB.ebath(range(3), 300.0, 0.4, 64, efric=np.eye(4))
+        TB.ebath(range(3), 300.0, 0.4, 64, efric=np.eye(4), device="cpu")
     with pytest.raises(ValueError, match="zeta1"):
         TB.ebath(range(3), 300.0, 0.4, 64, efric=np.eye(3),
-                 zeta1=np.eye(2))
+                 zeta1=np.eye(2), device="cpu")
     with pytest.raises(ValueError, match="required"):
-        TB.ebath(range(3), 300.0, 0.4, 64)
+        TB.ebath(range(3), 300.0, 0.4, 64, device="cpu")
 
 
 def test_from_jax_ebath():
     jb, tb = _ebaths(9, bias=0.2)
-    cb = from_jax_bath(jb)
+    cb = from_jax_bath(jb, device="cpu")
     assert isinstance(cb, TB.EBath) and cb.bias_terms
     _assert_bath_match(cb, jb)
     np.testing.assert_array_equal(cb.cids, tb.cids)

@@ -43,10 +43,10 @@ def _torch_runner(outdir, seed=7):
     r = TMD.md(DT, NMD, T, axyz=[["C", 1.0 * i, 0.0, 0.0]
                                  for i in range(NAT)],
                dyn=_dyn(), dtype=torch.float64, seed=seed,
-               outdir=str(outdir), block=16)
+               outdir=str(outdir), block=16, device="cpu")
     for Tb, cats in SPECS:
         r.AddBath(TB.phbath(Tb, cats, 0.3, 32, DT, NMD, ml=ML, gamma=GAM,
-                            gwl=GWL, dtype=torch.float64))
+                            gwl=GWL, dtype=torch.float64, device="cpu"))
     return r
 
 
@@ -180,16 +180,18 @@ def _plain_baths(kind, dtype, pkg):
     assert f64
     eta = np.eye(NC) / 60.0
     wind = 0.01 * np.random.default_rng(0).normal(size=(2, NC, NC))
+    dev = {"device": "cpu"} if pkg is TB else {}
     eb = pkg.ebath(range(NPH - NC, NPH), 270.0, DT, NMD, wmax=1.0,
-                   efric=eta, dtype=dtype)
+                   efric=eta, dtype=dtype, **dev)
     if kind == "electron_local":
         return [pkg.ebath(range(NC), 330.0, DT, NMD, wmax=1.0, efric=eta,
                           bias=0.2, exim=wind[0], zeta2=wind[1],
-                          dtype=dtype),
-                pkg.phbath(300.0, [4, 6], 0.3, 32, DT, NMD, dtype=dtype),
+                          dtype=dtype, **dev),
+                pkg.phbath(300.0, [4, 6], 0.3, 32, DT, NMD, dtype=dtype,
+                           **dev),
                 eb]
     return [pkg.phbath(330.0, range(NC), 0.3, 32, DT, NMD, ml=ML,
-                       gamma=GAM, gwl=GWL, dtype=dtype), eb]
+                       gamma=GAM, gwl=GWL, dtype=dtype, **dev), eb]
 
 
 @pytest.mark.parametrize("kind", ["electron_local", "memory_electron"])

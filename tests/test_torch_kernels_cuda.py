@@ -38,12 +38,16 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("ntraj", [1, 70])
-def test_block_corr_freq_matches_twin(cuda, ntraj):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    khat = torch.randn((33, 90, 90), dtype=torch.complex64, device=cuda,
+@pytest.mark.parametrize("nc", [90, 6, 33])
+@pytest.mark.parametrize("ntraj", [1, 70, 512])
+def test_block_corr_freq_matches_twin(cuda, ntraj, nc):
+    """One and 70 trajectories (a ragged tile of 64), 512 (eight tiles,
+    the load ring running on across them); the primary width, a narrow
+    one and one that leaves most of a warp's last row tile empty."""
+    gen = torch.Generator(device=cuda).manual_seed(ntraj + nc)
+    khat = torch.randn((33, nc, nc), dtype=torch.complex64, device=cuda,
                        generator=gen)
-    hhat = torch.randn((ntraj, 33, 90), dtype=torch.complex64, device=cuda,
+    hhat = torch.randn((ntraj, 33, nc), dtype=torch.complex64, device=cuda,
                        generator=gen)
     before = K2.launches
     got = K2.block_corr_freq(khat, hhat)
@@ -77,21 +81,27 @@ def _system(device, dtype, ntraj, nph=36, nmd=128, ml=40, constrained=False):
         unconstrained=not constrained)
 
 
-def _card_vs_cpu(cuda, ntraj, constrained, ml):
-    """run_segment_blocked with both kernels on the card (float32)
-    against the twins on the CPU (float64), 96 steps in blocks of 32."""
+def _card_vs_cpu(cuda, ntraj, constrained, ml, block=32):
+    """run_segment_blocked with the kernels on the card (float32) against
+    the twins on the CPU (float64), three blocks."""
     out = {}
+    nsteps = 3 * block
+    sub = K1.sub_steps(block)
+    nsub = -(-block // sub)
     for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
         system = _system(dev, dtype, ntraj, ml=ml, constrained=constrained)
         rng = np.random.default_rng(2)
         st = TMD.initial_state(system, ntraj, dtype=dtype).replace(
             p=torch.as_tensor(0.05 * rng.standard_normal((ntraj, 36)),
                               dtype=dtype, device=dev))
-        k1, k2 = K1.launches, K2.launches
-        fin, ys = TMD.run_segment_blocked(system, st, 96, t0=7, block=32)
+        near, far, k2 = K1.launches_near, K1.launches_far, K2.launches
+        fin, ys = TMD.run_segment_blocked(system, st, nsteps, t0=7,
+                                          block=block)
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert K1.launches == k1 + 3 and K2.launches == k2 + 6
+            assert K1.launches_near == near + 3 * nsub
+            assert K1.launches_far == far + 3 * (nsub - 1)
+            assert K2.launches == k2 + 6
         out[dev if dev == "cpu" else "cuda"] = (fin, ys)
     (fg, yg), (fc, yc) = out["cuda"], out["cpu"]
     for a, b in ((fg.p, fc.p), (fg.q, fc.q), (fg.phis, fc.phis),
@@ -110,17 +120,77 @@ def test_run_segment_blocked_card_matches_cpu(cuda, ntraj, constrained, ml):
     _card_vs_cpu(cuda, ntraj, constrained, ml)
 
 
+@pytest.fixture
+def sub_steps(monkeypatch):
+    def use(sub):
+        monkeypatch.setattr(K1, "sub_steps",
+                            lambda block: min(block, sub))
+    return use
+
+
+@pytest.mark.parametrize("sub,block", [(5, 32), (1, 8), (32, 32), (7, 9)])
+def test_sub_blocks_card_matches_cpu(cuda, sub_steps, sub, block):
+    """Sub-blocks that do not divide the block (5 into 32, 7 into 9), one
+    step per sub-block, one sub-block per block (no far taps)."""
+    sub_steps(sub)
+    _card_vs_cpu(cuda, 11, False, 40, block=block)
+
+
 @pytest.mark.parametrize("tile", [2, 4])
 def test_multi_trajectory_tiles_match_cpu(cuda, tile):
     """Enough trajectories that the wrapper picks two or four per CTA
-    (it wants about 1.5 CTAs per SM), with a ragged last tile: the
-    per-tile indexing of the kernel against the float64 twins."""
-    want = (3 * torch.cuda.get_device_properties(cuda)
-            .multi_processor_count) // 2
+    (it wants about one CTA per SM), with a ragged last tile: the
+    per-tile indexing of the near kernel against the float64 twins."""
+    want = (9 * torch.cuda.get_device_properties(cuda)
+            .multi_processor_count) // 10
     ntraj = 2 * want + 1 if tile == 2 else 4 * want - 1
     assert ntraj % tile
-    assert K1.tile_size(ntraj, 36, 2, 6, cuda) == tile
+    assert K1.tile_size(ntraj, 36, 2, 6, K1.sub_steps(32),
+                        cuda) == tile
     _card_vs_cpu(cuda, ntraj, False, 40)
+
+
+@pytest.mark.parametrize("ntraj", [3, 70])
+def test_near_and_far_kernels_match_twins(cuda, ntraj):
+    """Each kernel of the pair alone against its twin on the same
+    tensors: one near-tap sub-block from a random state, and one far-tap
+    update of random tails from random rings."""
+    block, b0, ns = 32, 10, 7
+    system = _system(cuda, torch.float32, ntraj)
+    gen = torch.Generator(device=cuda).manual_seed(ntraj)
+    baths = []
+    for b in system.baths:
+        kin = b.block_tap_kernel(block)
+        O = 0.01 * torch.randn((ntraj, block + 1, b.nc), device=cuda,
+                               generator=gen)
+        baths.append(K1.BathOperands(
+            b.noise, O, kin, K1.tap_major(kin, block),
+            b.kernel[0].contiguous(), b.cols,
+            torch.as_tensor(b.cids, dtype=torch.int32, device=cuda)))
+    p = 0.05 * torch.randn((ntraj, 36), device=cuda, generator=gen)
+    q = 0.05 * torch.randn((ntraj, 36), device=cuda, generator=gen)
+    pf = system.potential_force(q)
+    states = [K1.BlockState(p, q, pf, baths, block) for _ in range(2)]
+    for r0, r1 in zip(states[0].rings, states[1].rings):
+        r0.normal_(generator=gen).mul_(0.05)    # earlier sub-blocks' rows
+        r1.copy_(r0)
+    run = (system.dyn, system.mask, baths, 3, 128, 0.4, True, block, b0, ns)
+    before = K1.launches_near, K1.launches_far
+    K1.gle_near_cuda(states[0], *run, sub=ns + 1,
+                     tt=K1.tile_size(ntraj, 36, 2, 6, ns + 1, cuda))
+    K1.gle_near_plain(states[1], *run)
+    K1.gle_far_cuda(baths, states[0].rings, states[0].Os, block, b0, ns)
+    for b, r, O in zip(baths, states[1].rings, states[1].Os):
+        K1.gle_far_plain(b.kin, r, O, block, b0, ns)
+    torch.cuda.synchronize()
+    assert (K1.launches_near, K1.launches_far) == (before[0] + 1,
+                                                   before[1] + 1)
+    got, want = states
+    # (qprev is written at the block's last step only)
+    for name in ("p", "q", "pf", "cur", "etot"):
+        assert _rel(getattr(got, name), getattr(want, name)) < 1e-5, name
+    for g, w in zip(got.rings + got.Os, want.rings + want.Os):
+        assert _rel(g, w) < 1e-5
 
 
 # --- K6 conv_tails and K7 bath_force (the plain step) -------------------------

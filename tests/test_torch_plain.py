@@ -87,7 +87,7 @@ def _with_noise(jsys, noises):
 
 
 def _torch_run(jsys, noises, p0, q0, nsteps, t0, phis=None):
-    tsys = from_jax_system(jsys)
+    tsys = from_jax_system(jsys, device="cpu")
     tsys = tsys.replace(baths=tuple(
         b.replace(noise=torch.as_tensor(n)) for b, n in
         zip(tsys.baths, noises)))
@@ -221,9 +221,9 @@ def test_segments_chain():
     noises, p0, q0 = _inputs(jsys, 2, 13)
     full, _ = _torch_run(jsys, noises, p0, q0, 30, 3)
     mid, _ = _torch_run(jsys, noises, p0, q0, 17, 3)
-    tsys = from_jax_system(jsys).replace(baths=tuple(
+    tsys = from_jax_system(jsys, device="cpu").replace(baths=tuple(
         b.replace(noise=torch.as_tensor(n)) for b, n in
-        zip(from_jax_system(jsys).baths, noises)))
+        zip(from_jax_system(jsys, device="cpu").baths, noises)))
     two, _ = TMD.run_segment(tsys, mid, 13, t0=20)
     for name in ("p", "q", "phis", "qhis"):
         torch.testing.assert_close(getattr(two, name), getattr(full, name),
@@ -244,7 +244,7 @@ def test_conv_tails_twin_matches_step_plan(ml):
     """K6's twin reads the history out of a ring at any head, as
     ``PhBath.step_plan`` reads the newest-first history."""
     jb = _bath("phonon", [2, 0, 5, 4], NMD, ml=ml)
-    tb = from_jax_bath(jb)
+    tb = from_jax_bath(jb, device="cpu")
     rng = np.random.default_rng(ml)
     mlr = ml + 3
     ntraj, head = 3, 5
@@ -256,8 +256,8 @@ def test_conv_tails_twin_matches_step_plan(ml):
         want = np.asarray(jb.step_plan(jnp.asarray(old)))
         np.testing.assert_allclose(got[k].numpy(), want, rtol=1e-12,
                                    atol=1e-14)
-    assert K6.tail_baths([tb, from_jax_bath(_bath("phonon", [1], NMD, ml=2)),
-                          tb]) == [0, 2]
+    assert K6.tail_baths([tb, from_jax_bath(_bath("phonon", [1], NMD, ml=2),
+                                            device="cpu"), tb]) == [0, 2]
 
 
 @pytest.mark.parametrize("kind,ml", [("phonon", 2), ("phonon", 6),
@@ -272,7 +272,7 @@ def test_bath_force_twin_matches_force_rules(kind, ml):
     jb = _bath(kind, cats, nmd, ml=ml, seed=15)
     rng = np.random.default_rng(16)
     noise = rng.normal(size=(ntraj, nmd, 4))
-    tb = from_jax_bath(jb).replace(noise=torch.as_tensor(noise))
+    tb = from_jax_bath(jb, device="cpu").replace(noise=torch.as_tensor(noise))
     mlr = max(ml, 2)
     p, q, pf, pf2, x = (rng.normal(size=(ntraj, nph)) for _ in range(5))
     ring = rng.normal(size=(ntraj, mlr, nph))
@@ -344,7 +344,7 @@ def test_plain_matches_blocked(ml, block):
         _bath("phonon", range(4), NMD, ml=ml, T=320.0),
         _bath("phonon", range(12, 16), NMD, ml=ml - 2, T=280.0)])
     noises, p0, q0 = _inputs(jsys, 3, 17)
-    tsys = from_jax_system(jsys)
+    tsys = from_jax_system(jsys, device="cpu")
     tsys = tsys.replace(baths=tuple(
         b.replace(noise=torch.as_tensor(n)) for b, n in
         zip(tsys.baths, noises)), unconstrained=True)

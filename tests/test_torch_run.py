@@ -45,9 +45,9 @@ def _build(tmpdir, nmd=64, npie=1, seed=7, nstop=1, jax=False):
     else:
         r = TMD.md(0.4, nmd, 300.0, axyz=AXYZ, dyn=dyn, nstart=0,
                    nstop=nstop, npie=npie, dtype=torch.float64, seed=seed,
-                   outdir=str(tmpdir))
+                   outdir=str(tmpdir), device="cpu")
         r.AddBath(TB.ebath(range(3), 300.0, 0.4, nmd, wmax=1.0, efric=eta,
-                           dtype=torch.float64))
+                           dtype=torch.float64, device="cpu"))
     r.AddConstr([range(9, 12)])
     return r
 
@@ -159,9 +159,10 @@ def test_missing_previous_checkpoint_raises(tmp_path):
 
     dyn = chain_dynmat(3 * NAT, 0.05).numpy()
     r = Forgetful(0.4, 64, 300.0, axyz=AXYZ, dyn=dyn, nstop=2,
-                  dtype=torch.float64, outdir=str(tmp_path))
+                  dtype=torch.float64, outdir=str(tmp_path), device="cpu")
     r.AddBath(TB.ebath(range(3), 300.0, 0.4, 64, wmax=1.0,
-                       efric=np.eye(3) / 80.0, dtype=torch.float64))
+                       efric=np.eye(3) / 80.0, dtype=torch.float64,
+                       device="cpu"))
     with pytest.raises(FileNotFoundError, match="no previous checkpoint"):
         r.Run()
 
@@ -173,9 +174,10 @@ def test_divergence_raises_with_context(tmp_path):
     r = TMD.md(4.0, 256, 300.0, axyz=[["C", 1.0 * i, 0.0, 0.0]
                                       for i in range(2)],
                dyn=chain_dynmat(6, 5.0).numpy(), nstop=1,
-               dtype=torch.float64, outdir=str(tmp_path))
+               dtype=torch.float64, outdir=str(tmp_path), device="cpu")
     r.AddBath(TB.ebath(range(3), 300.0, 4.0, 256, wmax=1.0,
-                       efric=np.eye(3) * 0.01, dtype=torch.float64))
+                       efric=np.eye(3) * 0.01, dtype=torch.float64,
+                       device="cpu"))
     with pytest.raises(FloatingPointError, match="non-finite") as ei:
         r.Run()
     assert "none (run diverged" in str(ei.value)
@@ -188,9 +190,10 @@ def test_mismatched_checkpoint_rejected(tmp_path):
     r2 = TMD.md(0.4, 64, 300.0, axyz=[["C", 1.0 * i, 0.0, 0.0]
                                       for i in range(nat)],
                 dyn=chain_dynmat(3 * nat, 0.05).numpy(), nstop=1,
-                dtype=torch.float64, outdir=str(tmp_path))
+                dtype=torch.float64, outdir=str(tmp_path), device="cpu")
     r2.AddBath(TB.ebath(range(3), 300.0, 0.4, 64, wmax=1.0,
-                        efric=np.eye(3) / 80.0, dtype=torch.float64))
+                        efric=np.eye(3) / 80.0, dtype=torch.float64,
+                        device="cpu"))
     with pytest.raises(ValueError, match="stale checkpoint"):
         r2.Run()
 

@@ -55,7 +55,8 @@ def test_profile_spans_cover_run_ensemble(tmp_path):
     """Every span of the profile wraps a function that the profiled
     workloads (blocked and plain RunEnsemble, md.Run) really call, and
     the wrappers come off again. The K6/K7 spans wrap the launches,
-    which happen only on the card."""
+    which happen only on the card, and so do K1's near- and far-tap
+    launches."""
     nmd, dt, nat = 32, 0.4, 4
     gwl = np.linspace(0.0, 0.6, 16)
     gam = np.array([np.eye(3) * 0.02 * np.exp(-(w / 0.3) ** 2)
@@ -64,10 +65,10 @@ def test_profile_spans_cover_run_ensemble(tmp_path):
     r = TMD.md(dt, nmd, 300.0, axyz=[["C", 1.0 * i, 0.0, 0.0]
                                      for i in range(nat)],
                dyn=chain_dynmat(3 * nat, 0.05).numpy(), dtype=torch.float64,
-               outdir=str(tmp_path), block=8)
+               outdir=str(tmp_path), block=8, device="cpu")
     for Tb, cats in ((330.0, range(3)), (270.0, range(9, 12))):
         r.AddBath(TB.phbath(Tb, cats, 0.3, 32, dt, nmd, ml=9, gamma=gam,
-                            gwl=gwl, dtype=torch.float64))
+                            gwl=gwl, dtype=torch.float64, device="cpu"))
     before = TMD.md._write_kappa_files, TMD.gle_block
     undo = PE._wrap_spans()
     try:
@@ -85,7 +86,7 @@ def test_profile_spans_cover_run_ensemble(tmp_path):
     prof.export_chrome_trace(path)
     spans = PE.summarise(path, 1.0)["spans"]
     assert set(spans) == set(PE.SPANS)
-    card_only = {"K6_conv_tails", "K7_bath_force"}
+    card_only = {"K6_conv_tails", "K7_bath_force", "K1_near", "K1_far"}
     assert [k for k, v in spans.items()
             if k not in card_only and not v["calls"]] == []
     assert spans["K1_gle_block"]["calls"] == 2
@@ -150,3 +151,14 @@ def test_card_scripts_refuse_without_cuda(monkeypatch):
         plain_bench.main()
     with pytest.raises(SystemExit, match="CUDA"):
         PE.main(["--out", "unused"])
+
+
+@pytest.mark.parametrize("tool", ["blocked_bench", "k1_sweep"])
+def test_card_tools_refuse_the_cpu(monkeypatch, tool):
+    """The measurement tools time the card and stop without one instead
+    of timing the CPU."""
+    import importlib
+    mod = importlib.import_module(f"sclmd_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        mod.main([])
