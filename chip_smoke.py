@@ -24,13 +24,17 @@ not 0 and no result line is printed):
    on the card (kernels) and on the CPU (plain twins, float64);
 7. kernel, twin and library times (CUDA events) at each chunk size: K1's
    near and far kernels over one block (all their launches of a block),
-   K2 per call; K6 at the primary shapes for one trajectory, K7's
-   predictor at the flagship shapes at each chunk size of phase 10;
+   K2 per call; K6 at the primary shapes for one trajectory and for 37;
+   K7's three stages at its three main-path shapes (one trajectory on
+   the primary junction, the flagship at each chunk size of phase 10),
+   with the profiler's device duration (``device_ms``) beside the event
+   time, which for so short a kernel is the host's time to enqueue it;
    with the least time the card could take for each (``bound_ms``);
 8. K6 ``conv_tails`` and K7 ``bath_force`` against their twins: K6 at
    the primary shapes for one trajectory and a ragged batch of 37; K7
-   at the flagship shapes at each chunk size of phase 10, on a biased
-   electron bath, and on the primary phonon baths with K6's tails;
+   on the primary phonon baths with K6's tails at one trajectory and at
+   37, at the flagship shapes at each chunk size of phase 10, and on a
+   biased electron bath;
 9. the plain path through ``md.Run`` on the primary junction (no block,
    nmd 2048, runs 0 and 1 in two segments each, power spectra on),
    after a warm-up run, with K6/K7 launch counters read around it;
@@ -247,8 +251,8 @@ def main():
     times = {n: k1_k2_times(*ops) for n, ops in operands.items()}
     times["conv_tails"] = {n: k6_times(*ops)
                            for n, ops in plain_ops["k6"].items()}
-    times["bath_force_pred"] = {n: k7_times(c)
-                                for n, c in plain_ops["k7_flagship"].items()}
+    times["bath_force"] = {name: k7_times(c)
+                           for name, c in plain_ops["k7_main"].items()}
     print(json.dumps({"phase": 7, "ms": times}), flush=True)
 
     # 8. K6 and K7 against their twins
@@ -261,8 +265,10 @@ def main():
 
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
+    # K6 at one trajectory; K7 at one primary trajectory (two thirds of
+    # its launches), the mean of its three stages
     k6_t = times["conv_tails"][1]
-    k7_t = times["bath_force_pred"][min(times["bath_force_pred"])]
+    k7_t = times["bath_force"]["primary_1"]["mean"]
 
     def row(name, source, replaces, launches_, err, tm):
         return {"name": name, "route": "cuda", "source": source,
@@ -456,59 +462,52 @@ def k6_times(ring, head, baths, k6):
 
 
 def k7_times(c):
-    """K7's predictor at one chunk shape: kernel and twin (no single
-    library call computes it); bound from its matrices and the state
-    vectors it reads and writes."""
-    mats = [[m for m in (op.MvT, op.MhT, op.MqT) if m is not None]
-            for op in c.force.ops]
-    ncs = [op.bath.nc for op in c.force.ops]
-    flops = c.ntraj * sum(2 * nc * nc * len(m) for nc, m in zip(ncs, mats))
-    nbytes = 4 * (sum(m.numel() for ms in mats for m in ms)
-                  + c.ntraj * (6 * c.nph + sum(ncs) + len(ncs) + 1))
-    return _timed(lambda: pred_call(c, c.force), lambda: pred_call(c, None),
-                  None, flops, nbytes, 50, 20)
+    """K7's three stages at one shape: kernel (CUDA events, and the
+    profiler's device duration: where the two differ by more than a
+    tenth the event loop timed the host, and ``kernel`` is the device
+    duration; where the profiler's trace lost most launches three times
+    over, ``device`` repeats the event time) and twin (no single library call computes it); bound from
+    the matrices and the vectors the stage reads and writes. ``mean``
+    averages the stages."""
+    from sclmd_tpu_torch.tools.plain_bench import STAGES, device_us
+    ops = c.force.ops
+    ncs = [op.bath.nc for op in ops]
+    nmat = [op.MT.shape[0] // nc for op, nc in zip(ops, ncs)]
+    flops = c.ntraj * sum(2 * nc * nc * k for nc, k in zip(ncs, nmat))
+    gathered = sum(nc * (k - 1) for nc, k in zip(ncs, nmat))
+    tails = sum(nc for nc, t in zip(ncs, c.tails) if t is not None)
+    vectors = {   # (ntraj, nph) vectors read and written, then the rest
+        "pred": 3 + 3, "corr": 3 + 1, "last": 4 + 2}
+    out = {}
+    for stage in STAGES:
+        nbytes = 4 * (sum(nc * nc * k for nc, k in zip(ncs, nmat))
+                      + c.ntraj * (vectors[stage] * c.nph + gathered
+                                   + sum(ncs) + tails)
+                      + (c.ntraj * (len(ncs) + 1) if stage == "pred" else 0)
+                      + (c.nph if stage == "last" else 0))
+        t = _timed(lambda: c.stage_call(stage, True),
+                   lambda: c.stage_call(stage, False), None, flops, nbytes,
+                   200, 20)
+        t["event"] = t["kernel"]
+        try:
+            t["device"] = 1e-3 * sum(device_us(
+                lambda: c.stage_call(stage, True)).values())
+        except RuntimeError as e:    # three traces without the launches
+            print(json.dumps({"phase": 7, "stage": stage, "profiler": str(e)}),
+                  flush=True)
+            t["device"] = t["event"]
+        if abs(t["event"] - t["device"]) > 0.1 * t["device"]:
+            t["kernel"] = t["device"]
+        out[stage] = t
+    out["mean"] = {
+        k: (sum(out[s][k] for s in STAGES) / len(STAGES)
+            if isinstance(out["pred"][k], float) else out["pred"][k])
+        for k in out["pred"]}
+    out["tile"] = c.force.tile
+    return out
 
 
 # --- the plain GLE step: K6 and K7 -------------------------------------------
-class K7Case:
-    """K7's operands for one evaluation of every stage: a state, a
-    history ring, noise on the baths, K6 tails where a bath has them."""
-
-    def __init__(self, baths, ntraj, nph, nmd, dt, dev, seed):
-        from sclmd_tpu_torch.kernels import bath_force as K7
-        gen = torch.Generator(device=dev).manual_seed(seed)
-
-        def rnd(*shape, scale=1.0):
-            return scale * torch.randn(shape, device=dev, generator=gen)
-
-        self.baths = [b.replace(noise=rnd(ntraj, nmd, b.nc, scale=0.01))
-                      for b in baths]
-        self.p, self.q, self.x = (rnd(ntraj, nph, scale=0.05)
-                                  for _ in range(3))
-        self.pf, self.pf2 = rnd(ntraj, nph), rnd(ntraj, nph)
-        self.mlr = max(b.ml for b in baths)
-        self.ring = rnd(ntraj, self.mlr, nph, scale=0.05)
-        self.tails = [rnd(ntraj, b.nc, 2, scale=1e-3) if b.ml > 2 else None
-                      for b in baths]
-        self.mask = torch.ones(nph, device=dev)
-        self.mask[: nph // 10] = 0.0
-        self.cur = torch.zeros((ntraj, len(baths)), device=dev)
-        self.etot = torch.zeros((ntraj,), device=dev)
-        self.dt, self.nmd, self.ntraj, self.nph = dt, nmd, ntraj, nph
-        self.force = K7.BathForce(self.baths, ntraj, nph, nmd, dt, dev)
-
-
-def pred_call(c, force):
-    """One predictor evaluation, by the kernel (``force``) or the twin."""
-    from sclmd_tpu_torch.kernels import bath_force as K7
-    head, push = 0, (c.mlr - 1) % c.mlr
-    if force is not None:
-        return force.pred(c.p, c.q, c.pf, c.ring, head, push, c.tails, 3,
-                          c.cur, c.etot)
-    return K7.pred_plain(c.p, c.q, c.pf, c.ring, head, push, c.force.ops,
-                         c.tails, 3, c.dt, c.cur, c.etot)
-
-
 def k7_outputs(c, kernel: bool):
     """Every output of the three stages, by the kernel or the twins."""
     from sclmd_tpu_torch.kernels import bath_force as K7
@@ -541,6 +540,7 @@ def plain_step_operands(dev):
     """K6's and K7's operands at the shapes the plain path gives them."""
     from sclmd_tpu_torch.kernels import conv_tails as K6
     from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools.plain_bench import K7Case
     from sclmd_tpu_torch.tools.primary import DT, NMD, NPH, primary_baths
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -554,8 +554,9 @@ def plain_step_operands(dev):
     fsys = fr._build_system()
     sizes = sorted({n for ntraj in FLAG_SIZES
                     for n in F.chunk_sizes(fsys, ntraj)})
-    k7 = {n: K7Case(fr.baths, n, fr.nph, F.NMD, F.DT, dev, n)
-          for n in sizes}
+    k7 = {"primary_1": K7Case(pb, 1, NPH, NMD, DT, dev, 10)}
+    k7.update({f"flagship_{n}": K7Case(fr.baths, n, fr.nph, F.NMD, F.DT,
+                                       dev, n) for n in sizes})
     # a biased electron bath pair: random wind, renormalisation, Berry
     rng = np.random.default_rng(3)
     from sclmd_tpu_torch import baths as B
@@ -566,7 +567,7 @@ def plain_step_operands(dev):
                       zeta2=0.01 * rng.normal(size=(b.nc, b.nc)),
                       dtype=torch.float32, device=dev, factorize=False)
               for b in fr.baths]
-    return {"k6": k6, "k7_flagship": k7,
+    return {"k6": k6, "k7_main": k7,
             "k7_biased": K7Case(biased, 128, fr.nph, F.NMD, F.DT, dev, 9),
             "k7_phonon": K7Case(pb, 37, NPH, NMD, DT, dev, 10)}
 
@@ -585,7 +586,7 @@ def check_plain_kernels(ops):
         print(json.dumps({"phase": 8, "kernel": "conv_tails", "ntraj": n,
                           "rel_err": k6_rel, "rtol": RTOL}), flush=True)
         assert k6_rel <= RTOL, f"K6 disagrees with its twin: {errs}"
-    cases = [(f"flagship_{n}", c) for n, c in ops["k7_flagship"].items()]
+    cases = list(ops["k7_main"].items())
     cases += [("biased_128", ops["k7_biased"]),
               ("phonon_tails_37", ops["k7_phonon"])]
     for name, c in cases:
@@ -594,7 +595,7 @@ def check_plain_kernels(ops):
         k7_rel = max(e[0] for e in errs.values())
         k7_abs = max(k7_abs, max(e[1] for e in errs.values()))
         print(json.dumps({"phase": 8, "kernel": "bath_force", "case": name,
-                          "tile": c.force.args.tt, "rel_err": k7_rel,
+                          "tile": c.force.tile, "rel_err": k7_rel,
                           "rtol": RTOL}), flush=True)
         assert k7_rel <= RTOL, f"K7 disagrees with its twin: {errs}"
     return k6_abs, k7_abs

@@ -3,7 +3,7 @@
 // evaluation fused in (float32, sm_90a).
 //
 // Per bath, on its DOFs cids, with this evaluation's noise row n:
-//   fb = n - s (Mv x + Mh h + tail) + Mq q
+//   fb = n - s (M [x; h; q] + tail),   M = [Mv | Mh | -Mq / s]
 // non-local phonon bath: s = dt, Mv = K0, Mh = K1, tail = K6's column;
 // local phonon bath:     s = 1,  Mv = K0;
 // electron bath:         s = 1,  Mv = efric (+ bias zeta2),
@@ -19,30 +19,54 @@
 // (sclmd_tpu/baths.py:559-575) and EBath._markov_force (:234-239), with
 // the scatter and Verlet arithmetic of sclmd_tpu/md.py:349-380 around them.
 //
-// What bounds it on the H100: per trajectory and bath up to three nc x nc
-// matvecs (2 nc^2 FLOP each) against reading each matrix (90 KB at nc 150)
-// from L2. One CTA owns TT trajectories, so every matrix element it loads
-// feeds TT FMAs; the bath-DOF vectors are gathered into shared memory and
-// read as broadcasts. Matrices are passed transposed (MT[b][a]) so that a
-// thread owns output row a and a warp's loads are coalesced. For one
-// trajectory a CTA's own load latency is the cost (a thread walks a whole
-// row), so the loads go out in batches (matvec_row); the kernel also
-// folds about twenty small torch ops per evaluation into one launch.
+// What bounds it on the H100: latency, not bytes. The matrices of a step
+// (130 KB at the primary shapes, 180 KB at the flagship's) sit in L2, the
+// state is a few KB, and the evaluation is a chain of dependent phases
+// (indices, gather, product, scatter, update). With one trajectory there
+// is one CTA on a card of 132 SMs, so the time is the sum of that chain's
+// round trips (about half a microsecond each, more on a first touch), and
+// a warp that waits for a load issues nothing behind it. The design
+// shortens the chain:
+//  * a bath's matrices are packed into ONE operand along the reduction
+//    axis, stored transposed (MT[k][a], rows padded to 4 floats), so the
+//    bath is one product with K = nc, 2 nc or 3 nc;
+//  * the CTA's threads are dealt out to the baths (all baths at once), and
+//    a bath's threads to (K slice, 4 output rows): consecutive threads load
+//    consecutive float4s of MT, and a thread issues a whole batch of its
+//    matrix loads before the first FMA;
+//  * with one or two trajectories per CTA every global read of the
+//    evaluation (indices, x, h, q, base, mask, potential force, noise row,
+//    tail) goes out at the start as 4-byte cp.async into shared memory,
+//    none waiting for another, with the first batch of matrix loads behind
+//    them: one round trip for all of it. The gather through the indices
+//    and the Verlet update then read shared memory only;
+//  * the K slices' partial sums meet in shared memory and are added in
+//    slice order: no float atomics, a run is reproducible bit for bit;
+//  * where no two baths share a DOF (the host checks) the forces go onto
+//    the total in the same phase; baths that share DOFs take turns.
+// With many trajectories a CTA owns TT of them, so every matrix element
+// it loads feeds TT FMAs and L2 traffic falls with the tile; the CTAs are
+// then many and hide each other's round trips.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define BF_MAX_BATHS 4
-#define BF_THREADS 256
+#define BF_THREADS 512
 
 struct BfBath {
   const float* noise;  // (ntraj, nmd, nc)
-  const float* MvT;    // (nc, nc) transposed
-  const float* MhT;    // (nc, nc) transposed, or null
-  const float* MqT;    // (nc, nc) transposed, or null
+  const float* MT;     // (K, ld) packed transposed operand, 16-byte aligned
   const float* tail;   // (ntraj, nc, 2), or null
   const int* cids;     // (nc,) distinct
   float* fb;           // (ntraj, nc) out, or null
-  int nc;
+  int nc, ld, K;       // ld = nc rounded up to 4; K = nc * (matrices)
+  int src1, src2;      // what matrices 1 and 2 act on: 1 = h, 2 = q
+  int t0, nt;          // this bath's threads [t0, t0 + nt)
+  int ncol, nsl;       // threads along the float4 columns; K slices
+  // shared-memory offsets, in floats: gathered vectors, partial sums,
+  // noise then force, staged tail, indices (from ci_off)
+  int v_off, p_off, z_off, tl_off, c_off;
   float s;
 };
 
@@ -60,7 +84,12 @@ struct BfArgs {
   float* etot;         // row stride etot_stride (stage 0)
   float* push;         // ring row, row stride push_stride, or null
   long long h_stride, push_stride, cur_stride, etot_stride;
-  int ntraj, nph, nb, nmd, row, stage, tt, ncmax, tail_col;
+  int ntraj, nph, nb, nmd, row, stage, tt, tail_col;
+  // shared-memory offsets, in floats: the force, staged x, h, q, base and
+  // mask, the baths' indices; then the bytes in all
+  int f_off, xs_off, hs_off, qs_off, bs_off, ms_off, ci_off, smem_bytes;
+  int disjoint;        // no two baths share a DOF
+  int need_h, need_q;  // some bath's operand acts on h, on q
   float dt, hdt, dt2h;
   BfBath baths[BF_MAX_BATHS];
 };
@@ -71,124 +100,270 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// acc[t] += sum_b MT[b][row] V[t][b]. A thread owns one row, so its
-// loads are what bounds it: BF_BATCH of them are issued before the FMAs
-// that use them, to keep the L2 latency of each in the shadow of the rest.
-#define BF_BATCH 16
-template <int TT>
-__device__ __forceinline__ void matvec_row(const float* __restrict__ MT,
-                                           const float* V, int ld, int nc,
-                                           int row, float* acc) {
-  int b = 0;
-  for (; b + BF_BATCH <= nc; b += BF_BATCH) {
-    float m[BF_BATCH];
-#pragma unroll
-    for (int u = 0; u < BF_BATCH; ++u)
-      m[u] = __ldg(&MT[(size_t)(b + u) * nc + row]);
-#pragma unroll
-    for (int u = 0; u < BF_BATCH; ++u) {
-#pragma unroll
-      for (int t = 0; t < TT; ++t) acc[t] += m[u] * V[t * ld + b + u];
-    }
-  }
-  for (; b < nc; ++b) {
-    const float m = __ldg(&MT[(size_t)b * nc + row]);
-#pragma unroll
-    for (int t = 0; t < TT; ++t) acc[t] += m * V[t * ld + b];
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int TT>
+// 4 bytes from global to shared memory, asynchronously
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// TT trajectories per CTA, U matrix loads (float4) in flight per thread
+template <int TT, int U>
 __global__ void __launch_bounds__(BF_THREADS)
 bath_force_kernel(const BfArgs a) {
-  extern __shared__ float sm[];
-  const int nph = a.nph, ld = a.ncmax;
-  float* F = sm;                  // [TT][nph] total force
-  float* XG = F + TT * nph;       // [TT][ncmax] x on the bath DOFs
-  float* HG = XG + TT * ld;       // [TT][ncmax] h on the bath DOFs
-  float* QG = HG + TT * ld;       // [TT][ncmax] q on the bath DOFs
-  float* FB = QG + TT * ld;       // [TT][ncmax] this bath's force
+  constexpr int NT = BF_THREADS;
+  extern __shared__ __align__(128) float sm[];
+  // one or two trajectories per CTA: the latency form, everything staged
+  constexpr bool STAGED = TT <= 2;
+  const int nph = a.nph;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tr0 = blockIdx.x * TT;
   const int ntt = min(TT, a.ntraj - tr0);
   const size_t g0 = (size_t)tr0 * nph;
+  float* F = sm + a.f_off;        // [TT][nph] total force
+  float* XS = sm + a.xs_off;      // staged x
+  float* HS = sm + a.hs_off;      // staged h
+  float* QS = sm + a.qs_off;      // staged q
+  float* BS = sm + a.bs_off;      // staged base (stages 1, 2)
+  float* MS = sm + a.ms_off;      // staged mask (stage 2)
+  int* CI = reinterpret_cast<int*>(sm + a.ci_off);  // the baths' cids
 
-  for (int i = tid; i < TT * nph; i += BF_THREADS)
-    F[i] = i < ntt * nph ? a.pf[g0 + i] : 0.f;
-
-  for (int bi = 0; bi < a.nb; ++bi) {
-    const BfBath& B = a.baths[bi];
-    const int nc = B.nc;
-    __syncthreads();  // F complete; the previous bath's FB/XG no longer read
-    for (int i = tid; i < TT * nc; i += BF_THREADS) {
-      const int t = i / nc, c = i % nc;
-      const bool ok = t < ntt;
-      const int col = B.cids[c];
-      const size_t r = (size_t)(tr0 + t);
-      XG[t * ld + c] = ok ? a.x[r * nph + col] : 0.f;
-      if (B.MhT) HG[t * ld + c] = ok ? a.h[r * a.h_stride + col] : 0.f;
-      if (B.MqT) QG[t * ld + c] = ok ? a.q[r * nph + col] : 0.f;
-    }
-    __syncthreads();
-    for (int row = tid; row < nc; row += BF_THREADS) {
-      float acc[TT], qa[TT];
+  // this thread's bath, K slice and float4 column
+  const float4* MT4 = nullptr;
+  int K = 0, ld4 = 0, nsl = 1, ncol = 1, sl = 0, col = 0, v_off = 0,
+      p_off = 0;
+  bool active = false;
 #pragma unroll
-      for (int t = 0; t < TT; ++t) acc[t] = qa[t] = 0.f;
-      matvec_row<TT>(B.MvT, XG, ld, nc, row, acc);
-      if (B.MhT) matvec_row<TT>(B.MhT, HG, ld, nc, row, acc);
-      if (B.MqT) matvec_row<TT>(B.MqT, QG, ld, nc, row, qa);
-#pragma unroll
-      for (int t = 0; t < TT; ++t) {
-        if (t >= ntt) break;
-        const size_t r = (size_t)(tr0 + t);
-        if (B.tail) acc[t] += B.tail[(r * nc + row) * 2 + a.tail_col];
-        const float fb =
-            B.noise[(r * a.nmd + a.row) * nc + row] - B.s * acc[t] + qa[t];
-        FB[t * ld + row] = fb;
-        if (B.fb) B.fb[r * nc + row] = fb;
+  for (int i = 0; i < BF_MAX_BATHS; ++i) {
+    if (i < a.nb) {
+      const BfBath& B = a.baths[i];
+      const int tl = tid - B.t0;
+      if (tl >= 0 && tl < B.nt) {
+        MT4 = reinterpret_cast<const float4*>(B.MT);
+        K = B.K, ld4 = B.ld >> 2, nsl = B.nsl, ncol = B.ncol;
+        sl = tl / ncol, col = tl - sl * ncol;
+        v_off = B.v_off, p_off = B.p_off;
+        active = sl < nsl;
       }
     }
-    __syncthreads();
-    for (int i = tid; i < ntt * nc; i += BF_THREADS) {
-      const int t = i / nc, c = i % nc;
-      F[t * nph + B.cids[c]] += FB[t * ld + c];
+  }
+
+  float4 m[U];
+
+  // every global read of the evaluation that does not wait for the
+  // indices goes out here, asynchronously and at once, the first batch of
+  // matrix loads behind them: one round trip, whatever depends on what
+#pragma unroll
+  for (int i = 0; i < BF_MAX_BATHS; ++i) {
+    if (i < a.nb) {
+      const BfBath& B = a.baths[i];
+      const int nc = B.nc;
+      for (int c = tid; c < nc; c += NT)
+        cp_async4(CI + B.c_off + c, B.cids + c);
+      for (int idx = tid; idx < ntt * nc; idx += NT) {
+        const int t = idx / nc, c = idx - t * nc;
+        const size_t r = (size_t)(tr0 + t);
+        cp_async4(sm + B.z_off + idx, B.noise + (r * a.nmd + a.row) * nc + c);
+        if (B.tail)
+          cp_async4(sm + B.tl_off + idx,
+                    B.tail + (r * nc + c) * 2 + a.tail_col);
+      }
     }
-    if (a.stage == 0 && a.cur) {
-      for (int t = warp; t < ntt; t += BF_THREADS / 32) {
-        float c = 0.f;
-        for (int i = lane; i < nc; i += 32) c += FB[t * ld + i] * XG[t * ld + i];
-        c = warp_sum(c);
-        if (lane == 0) a.cur[(size_t)(tr0 + t) * a.cur_stride + bi] = c;
+  }
+  for (int i = tid; i < ntt * nph; i += NT) {
+    cp_async4(F + i, a.pf + g0 + i);
+    if (STAGED) {
+      cp_async4(XS + i, a.x + g0 + i);
+      if (a.need_q) cp_async4(QS + i, a.q + g0 + i);
+      if (a.stage != 0) cp_async4(BS + i, a.base + g0 + i);
+      if (a.need_h) {
+        const int t = i / nph;
+        cp_async4(HS + i,
+                  a.h + (size_t)(tr0 + t) * a.h_stride + (i - t * nph));
+      }
+    }
+  }
+  if (STAGED && a.stage == 2)
+    for (int i = tid; i < nph; i += NT) cp_async4(MS + i, a.mask + i);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int k = sl + u * nsl;
+    m[u] = (active && k < K) ? __ldg(MT4 + (size_t)k * ld4 + col)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // each bath's [x; h; q] on its DOFs: out of the staged vectors, or (many
+  // trajectories per CTA) out of global memory, again without waiting
+#pragma unroll
+  for (int i = 0; i < BF_MAX_BATHS; ++i) {
+    if (i < a.nb) {
+      const BfBath& B = a.baths[i];
+      const int nc = B.nc, Kb = B.K;
+      float* V = sm + B.v_off;
+      const int* ci = CI + B.c_off;
+      for (int idx = tid; idx < TT * Kb; idx += NT) {
+        const int t = idx / Kb, k = idx - t * Kb;
+        const int mi = k / nc, c = k - mi * nc;
+        const int src = mi == 0 ? 0 : (mi == 1 ? B.src1 : B.src2);
+        if (t >= ntt) {
+          V[idx] = 0.f;
+        } else if (STAGED) {
+          const float* S = src == 0 ? XS : (src == 1 ? HS : QS);
+          V[idx] = S[t * nph + ci[c]];
+        } else {
+          const size_t r = (size_t)(tr0 + t);
+          cp_async4(V + idx, src == 0   ? a.x + r * nph + ci[c]
+                             : src == 1 ? a.h + r * a.h_stride + ci[c]
+                                        : a.q + r * nph + ci[c]);
+        }
+      }
+    }
+  }
+  if (!STAGED) asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // the product: this thread's K slice of 4 output rows, TT trajectories
+  if (active) {
+    const float* V = sm + v_off;
+    float* P = sm + p_off;
+    for (int c4 = col; c4 < ld4; c4 += ncol) {
+      float acc[TT][4];
+#pragma unroll
+      for (int t = 0; t < TT; ++t)
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+      for (int j0 = 0; sl + j0 * nsl < K; j0 += U) {
+        if (c4 != col || j0 != 0) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int k = sl + (j0 + u) * nsl;
+            m[u] = k < K ? __ldg(MT4 + (size_t)k * ld4 + c4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int k = sl + (j0 + u) * nsl;
+          if (k < K) {
+#pragma unroll
+            for (int t = 0; t < TT; ++t) {
+              const float v = V[t * K + k];
+              acc[t][0] += m[u].x * v;
+              acc[t][1] += m[u].y * v;
+              acc[t][2] += m[u].z * v;
+              acc[t][3] += m[u].w * v;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < TT; ++t)
+        *reinterpret_cast<float4*>(P + (size_t)(sl * TT + t) * (ld4 * 4) +
+                                   c4 * 4) =
+            make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+    }
+  }
+  __syncthreads();
+
+  // the slices' partial sums, added in slice order: fb = n - s (M v + tail);
+  // where no two baths share a DOF the forces go onto F here as well
+#pragma unroll
+  for (int i = 0; i < BF_MAX_BATHS; ++i) {
+    if (i < a.nb) {
+      const BfBath& B = a.baths[i];
+      const int nc = B.nc, ld = B.ld;
+      const float* P = sm + B.p_off;
+      float* Z = sm + B.z_off;
+      const int* ci = CI + B.c_off;
+      for (int idx = tid; idx < ntt * nc; idx += NT) {
+        const int t = idx / nc, c = idx - t * nc;
+        float s_ = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < B.nsl; ++j) s_ += P[(size_t)(j * TT + t) * ld + c];
+        if (B.tail) s_ += sm[B.tl_off + idx];
+        const float fb = Z[idx] - B.s * s_;
+        Z[idx] = fb;
+        if (B.fb) B.fb[(size_t)(tr0 + t) * nc + c] = fb;
+        if (a.disjoint) F[t * nph + ci[c]] += fb;
       }
     }
   }
   __syncthreads();
 
-  for (int i = tid; i < ntt * nph; i += BF_THREADS) {
+  // baths that share DOFs: onto the force bath after bath
+  if (!a.disjoint) {
+#pragma unroll
+    for (int i = 0; i < BF_MAX_BATHS; ++i) {
+      if (i < a.nb) {
+        const BfBath& B = a.baths[i];
+        const int nc = B.nc;
+        const float* Z = sm + B.z_off;
+        const int* ci = CI + B.c_off;
+        for (int idx = tid; idx < ntt * nc; idx += NT) {
+          const int t = idx / nc, c = idx - t * nc;
+          F[t * nph + ci[c]] += Z[idx];
+        }
+        __syncthreads();
+      }
+    }
+  }
+  // the predictor's heat currents, a warp per (bath, trajectory)
+  if (a.stage == 0 && a.cur) {
+#pragma unroll
+    for (int i = 0; i < BF_MAX_BATHS; ++i) {
+      if (i < a.nb) {
+        const BfBath& B = a.baths[i];
+        const float* Z = sm + B.z_off;
+        const float* V = sm + B.v_off;
+        for (int t = warp - i * TT; t < ntt; t += NT / 32) {
+          if (t < 0) continue;
+          float c = 0.f;
+          for (int j = lane; j < B.nc; j += 32)
+            c += Z[t * B.nc + j] * V[t * B.K + j];
+          c = warp_sum(c);
+          if (lane == 0) a.cur[(size_t)(tr0 + t) * a.cur_stride + i] = c;
+        }
+      }
+    }
+  }
+
+  for (int i = tid; i < ntt * nph; i += NT) {
     const size_t g = g0 + i;
     const float f = F[i];
     if (a.f_out) a.f_out[g] = f;
     if (a.stage == 0) {
-      const float x = a.x[g];
+      const float x = STAGED ? XS[i] : a.x[g];
+      const float q = STAGED ? QS[i] : a.q[g];
       a.out_p[g] = x + f * a.hdt;
-      a.out_q[g] = a.q[g] + x * a.dt + f * a.dt2h;
+      a.out_q[g] = q + x * a.dt + f * a.dt2h;
       if (a.push) {
         const int t = i / nph;
-        a.push[(size_t)(tr0 + t) * a.push_stride + (i % nph)] = x;
+        a.push[(size_t)(tr0 + t) * a.push_stride + (i - t * nph)] = x;
       }
     } else if (a.stage == 1) {
-      a.out_p[g] = a.base[g] + a.hdt * f;
+      const float b = STAGED ? BS[i] : a.base[g];
+      a.out_p[g] = b + a.hdt * f;
     } else {
-      const float m = a.mask[i % nph];
-      a.out_p[g] = (a.base[g] + a.hdt * f) * m;
-      a.out_q[g] = a.q[g] * m;
+      const int j = i % nph;
+      const float b = STAGED ? BS[i] : a.base[g];
+      const float q = STAGED ? QS[i] : a.q[g];
+      const float mk = STAGED ? MS[j] : a.mask[j];
+      a.out_p[g] = (b + a.hdt * f) * mk;
+      a.out_q[g] = q * mk;
     }
   }
   if (a.stage == 0 && a.etot) {
-    for (int t = warp; t < ntt; t += BF_THREADS / 32) {
+    for (int t = warp; t < ntt; t += NT / 32) {
       float e = 0.f;
       for (int i = lane; i < nph; i += 32) {
-        const float x = a.x[g0 + (size_t)t * nph + i];
+        const float x = STAGED ? XS[t * nph + i]
+                               : a.x[g0 + (size_t)t * nph + i];
         e += x * x;
       }
       e = warp_sum(e);
@@ -197,33 +372,43 @@ bath_force_kernel(const BfArgs a) {
   }
 }
 
-static int smem_bytes(int tt, int nph, int ncmax) {
-  return (tt * nph + 4 * tt * ncmax) * (int)sizeof(float);
-}
-
-template <int TT>
+template <int TT, int U>
 static int launch(const BfArgs& a, cudaStream_t st) {
-  const int bytes = smem_bytes(TT, a.nph, a.ncmax);
-  cudaError_t e = cudaFuncSetAttribute(
-      bath_force_kernel<TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (a.ntraj + TT - 1) / TT;
-  bath_force_kernel<TT><<<grid, BF_THREADS, bytes, st>>>(a);
+  static int allowed = 0;   // largest dynamic shared memory set so far
+  if (a.smem_bytes > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bath_force_kernel<TT, U>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    allowed = a.smem_bytes;
+  }
+  bath_force_kernel<TT, U>
+      <<<(a.ntraj + TT - 1) / TT, BF_THREADS, a.smem_bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int bath_force_f32(const BfArgs* args, void* stream) {
-  const BfArgs a = *args;
+  const BfArgs& a = *args;
   if (a.nb < 0 || a.nb > BF_MAX_BATHS || a.ntraj < 1 || a.nph < 1 ||
-      a.ncmax < 1 || a.stage < 0 || a.stage > 2)
+      a.stage < 0 || a.stage > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (a.tt) {
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 4: return launch<4>(a, st);
-    case 8: return launch<8>(a, st);
+    case 1: return launch<1, 8>(a, st);
+    case 2: return launch<2, 8>(a, st);
+    case 4: return launch<4, 8>(a, st);
+    case 8: return launch<8, 6>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int bath_force_threads(void) { return BF_THREADS; }
+
+// An empty kernel: its device time is what any launch costs on this card,
+// the floor under K7's time that no design of the kernel removes.
+__global__ void bath_force_noop_kernel() {}
+
+extern "C" int bath_force_noop(void* stream) {
+  bath_force_noop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

@@ -110,10 +110,27 @@ def load() -> ctypes.CDLL:
     lib.gle_far_f32.restype = ci
     lib.conv_tails_f32.argtypes = [vp, vp]
     lib.conv_tails_f32.restype = ci
+    lib.conv_tails_rows.argtypes = []
+    lib.conv_tails_rows.restype = ci
     lib.bath_force_f32.argtypes = [vp, vp]
     lib.bath_force_f32.restype = ci
+    lib.bath_force_threads.argtypes = []
+    lib.bath_force_threads.restype = ci
+    lib.bath_force_noop.argtypes = [vp]
+    lib.bath_force_noop.restype = ci
     _lib = lib
     return lib
+
+
+def current_stream(device) -> int:
+    """The address of the CUDA stream PyTorch now works on for
+    ``device``, read at each launch (a kernel goes where the caller's
+    other work goes, inside ``torch.cuda.stream`` blocks too)."""
+    import torch
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(rc: int, name: str):

@@ -39,6 +39,7 @@ and the checkpointed/segmented ``RunEnsemble``.
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -98,11 +99,18 @@ class GLESystem:
     def replace(self, **changes) -> "GLESystem":
         return replace(self, **changes)
 
+    @functools.cached_property
+    def neg_dyn_t(self) -> torch.Tensor:
+        """``-dyn.T``, made once per system: the plain step asks for the
+        force twice a step, and the host's time per step is what bounds
+        it, so the sign is not a kernel of its own each time."""
+        return (-self.dyn).T
+
     def potential_force(self, q: torch.Tensor) -> torch.Tensor:
         """-dyn q per trajectory: one GEMM on the card; on the CPU the
         batch-invariant ``matvec`` (see ops.functions)."""
         if q.device.type == "cuda":
-            return -(q @ self.dyn.T)
+            return torch.mm(q, self.neg_dyn_t)
         return -matvec(self.dyn, q)
 
 

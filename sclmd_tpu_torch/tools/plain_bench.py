@@ -1,32 +1,62 @@
 """Times of the plain GLE step's kernels and entry points on the card.
 
-    python -m sclmd_tpu_torch.tools.plain_bench
+    python -m sclmd_tpu_torch.tools.plain_bench [--label NAME] [--sweep]
 
 Needs a CUDA card. Measures the package it is imported from, so two
-versions are compared by running it from the root of each checkout in
-turn, in one call on one card (parent, change, change, parent). Prints
-one JSON line:
+versions are compared by running this file from the root of each
+checkout in turn, in one call on one card (parent, change, change,
+parent; for the parent: ``PYTHONPATH=. python
+<this tree>/sclmd_tpu_torch/tools/plain_bench.py --label parent`` from
+the root of its ``git archive``). Prints the card's name and power limit
+and one JSON line:
 
-* ``k6_event_us``: K6 at the primary shapes, one trajectory (CUDA
-  events over 200 back-to-back calls);
-* ``device_us``: profiler device time per launch (mean of 50) of K6's
-  two passes at one trajectory, of K7's predictor at one trajectory on
-  the primary phonon baths with tails, and at 128 flagship trajectories;
-* ``run_steps_per_s``: two ``md.Run`` calls on the primary junction (no
+* ``k7``: K7 at its three shapes (``primary_1``: one trajectory on the
+  primary junction's phonon baths with K6's tails; ``flagship_128`` and
+  ``flagship_<chunk>``: the flagship's electron baths at 128
+  trajectories and at the chunk size of its 1024-trajectory run), each
+  stage (``pred``, ``corr``, ``last``): ``event_us`` (CUDA events over
+  200 back-to-back calls, which is the host's enqueue time once the
+  kernel is shorter than that), ``device_us`` (the profiler's mean
+  device duration over 50 launches) and ``enqueue_us`` (host clock per
+  call, no synchronise);
+* ``k6``: K6 at the primary shapes for 1 and 37 trajectories, the same
+  three times (``device_us`` per kernel name: the parent's has two);
+* ``noop_device_us``: an empty kernel's device duration, where the
+  package has one;
+* ``segment``: 2048 plain steps of ``md.run_segment`` on the primary
+  junction at one trajectory: ``host_s`` (the loop's host clock, no
+  synchronise: what the host needs to enqueue the steps) and ``wall_s``
+  (with the closing synchronise); ``flagship_segment``: the same for the
+  flagship's 1024 steps at 128 and 1024 trajectories (the part of
+  ``RunEnsemble`` that runs the kernels, without its draws and files);
+* ``run_steps_per_s``: three ``md.Run`` calls on the primary junction (no
   block, 2 runs x 2048 steps in two segments, power spectra on), runner
   set-up outside the window, after a warm-up call;
 * ``flagship_traj_steps_per_s``: ``RunEnsemble(block=None)`` on the
-  harmonic flagship at 128 and 1024 trajectories, after a warm-up each.
+  harmonic flagship at 128 and 1024 trajectories, five calls each after a
+  warm-up (the host's draws and kappa files spread them).
+
+``--sweep`` adds ``k7_sweep``: K7's predictor device time at each shape
+for every number of trajectories per CTA the kernel is built for; and
+``k6_keep_sweep``: K6's device time per step at one trajectory for
+several shares of L2 that the kernel slab is asked to stay in (0: every
+tap is asked to leave first; 1: as much of the slab as L2 holds).
 """
 
+import argparse
 import json
+import subprocess
 import tempfile
 import time
 
+import numpy as np
 import torch
 
+STAGES = ("pred", "corr", "last")
 
-def _event_us(fn, reps):
+
+def event_us(fn, reps=200):
+    """Mean microseconds per call between two CUDA events."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -39,81 +69,227 @@ def _event_us(fn, reps):
     return 1000.0 * a.elapsed_time(b) / reps
 
 
-def _device_us(fn, reps=50):
-    """Profiler device time per launch of the plain step's kernels."""
+def enqueue_us(fn, reps=200):
+    """Host microseconds per call, no synchronise inside the window."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
+
+
+def device_us(fn, reps=50, names=("bath_force", "conv_tails", "noop")):
+    """Profiler device microseconds per launch, by kernel name: the mean
+    over the launches the trace recorded. The profiler sometimes drops
+    records; a trace that kept fewer than half of the calls is taken
+    again, and three such in a row raise."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if any(n in e.key for n in names)]
+        if found and all(2 * e.count >= reps for e in found):
+            return {e.key[:60]: e.device_time_total / e.count for e in found}
+    raise RuntimeError("device_us: the profiler recorded "
+                       f"{[(e.key[:40], e.count) for e in found]} for {reps} "
+                       "calls")
+
+
+def times(fn):
+    dev = device_us(fn)
+    return {"event_us": event_us(fn), "device_us": sum(dev.values()),
+            "enqueue_us": enqueue_us(fn), "kernels": dev}
+
+
+class K7Case:
+    """K7's operands for one evaluation of every stage: a state, a
+    history ring, noise on the baths, K6 tails where a bath has them."""
+
+    def __init__(self, baths, ntraj, nph, nmd, dt, dev, seed, **force_kw):
+        from sclmd_tpu_torch.kernels import bath_force as K7
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def rnd(*shape, scale=1.0):
+            return scale * torch.randn(shape, device=dev, generator=gen)
+
+        self.baths = [b.replace(noise=rnd(ntraj, nmd, b.nc, scale=0.01))
+                      for b in baths]
+        self.p, self.q, self.x = (rnd(ntraj, nph, scale=0.05)
+                                  for _ in range(3))
+        self.pf, self.pf2 = rnd(ntraj, nph), rnd(ntraj, nph)
+        self.mlr = max(b.ml for b in baths)
+        self.ring = rnd(ntraj, self.mlr, nph, scale=0.05)
+        self.tails = [rnd(ntraj, b.nc, 2, scale=1e-3) if b.ml > 2 else None
+                      for b in baths]
+        self.mask = torch.ones(nph, device=dev)
+        self.mask[: nph // 10] = 0.0
+        self.cur = torch.zeros((ntraj, len(baths)), device=dev)
+        self.etot = torch.zeros((ntraj,), device=dev)
+        self.dt, self.nmd, self.ntraj, self.nph = dt, nmd, ntraj, nph
+        self.force = K7.BathForce(self.baths, ntraj, nph, nmd, dt, dev,
+                                  **force_kw)
+        # a predictor's outputs, for the correctors' inputs
+        self.ph, self.qt = (t.clone() for t in self.stage_call("pred", True))
+
+    def stage_call(self, stage, kernel: bool):
+        """One evaluation of a stage, by the kernel or its twin."""
+        from sclmd_tpu_torch.kernels import bath_force as K7
+        head, push = 0, (self.mlr - 1) % self.mlr
+        f, ops = self.force, self.force.ops
+        if stage == "pred":
+            if kernel:
+                return f.pred(self.p, self.q, self.pf, self.ring, head, push,
+                              self.tails, 3, self.cur, self.etot)
+            return K7.pred_plain(self.p, self.q, self.pf, self.ring, head,
+                                 push, ops, self.tails, 3, self.dt, self.cur,
+                                 self.etot)
+        mask = self.mask if stage == "last" else None
+        if kernel:
+            return f.corr(self.x, self.qt, self.pf2, self.p, self.ph,
+                          self.tails, 4, mask=mask)
+        return K7.corr_plain(self.x, self.qt, self.pf2, self.p, self.ph, ops,
+                             self.tails, 4, self.dt, mask)
+
+
+def k7_cases(dev, **force_kw):
+    """K7's three main-path shapes: name -> K7Case."""
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools.primary import DT, NMD, NPH, primary_baths
+
+    fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp())
+    chunk = max(F.chunk_sizes(fr._build_system(), 1024))
+    cases = {"primary_1": K7Case(primary_baths(torch.float32, dev), 1, NPH,
+                                 NMD, DT, dev, 10, **force_kw)}
+    for n in sorted({128, chunk}):
+        cases[f"flagship_{n}"] = K7Case(fr.baths, n, fr.nph, F.NMD, F.DT,
+                                        dev, n, **force_kw)
+    return cases
+
+
+def segment_times(r, ntraj, nsteps):
+    """Host enqueue time and wall time of ``nsteps`` plain steps of
+    ``ntraj`` trajectories of the runner ``r``'s system, three samples
+    after a warm-up."""
+    from sclmd_tpu_torch.md import run_segment, thermal_init
+    from sclmd_tpu_torch.ops.noise import sample_noise_from_r
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors
+
+    dev = r.device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    facs = bath_factors(r.baths, dev)
+    system = r._build_system().replace(baths=tuple(
+        b.replace(noise=sample_noise_from_r(
+            torch.randn((ntraj,) + tuple(sd.shape), dtype=sd.dtype,
+                        device=dev, generator=gen), ev, sd, r.dt, r.nmd))
+        for b, (ev, sd) in zip(r.baths, facs)))
+    st = thermal_init(torch.rand((ntraj, r.nph), dtype=r.dtype, device=dev,
+                                 generator=gen), system, r.hw, r.U, r.T)
+    out = []
+    for _ in range(4):                    # the first is the warm-up
         torch.cuda.synchronize()
-    return {e.key: e.device_time_total / e.count for e in prof.key_averages()
-            if e.count and ("bath_force" in e.key or "conv_tails" in e.key)}
+        t0 = time.perf_counter()
+        run_segment(system, st, nsteps, t0=0)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out.append({"host_s": host, "wall_s": time.perf_counter() - t0})
+    return out[1:]
 
 
-def main():
+def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("plain_bench: needs a CUDA device")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--no-e2e", action="store_true",
+                    help="kernel times only")
+    args = ap.parse_args(argv)
     from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import build
     from sclmd_tpu_torch.kernels import conv_tails as K6
     from sclmd_tpu_torch.tools import flagship as F
     from sclmd_tpu_torch.tools.primary import (NMD, NPH, primary_baths,
                                                primary_runner)
 
     dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    res = {"label": args.label, "device": smi, "k7": {}, "k6": {}}
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def rnd(*shape):
-        return 0.05 * torch.randn(shape, device=dev, generator=gen)
+    lib = build.load()
+    if hasattr(lib, "bath_force_noop"):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        res["noop_device_us"] = sum(device_us(
+            lambda: lib.bath_force_noop(stream)).values())
 
     pb = primary_baths(torch.float32, dev)
-    ring = rnd(1, pb[0].ml, NPH)
-    k6 = K6.ConvTailsCuda(ring, pb)
-    res = {"k6_event_us": _event_us(lambda: k6(377), 200),
-           "device_us": {"k6_1traj": _device_us(lambda: k6(377))}}
+    for n, head in ((1, 377), (37, 5)):
+        ring = 0.05 * torch.randn((n, pb[0].ml, NPH), device=dev,
+                                  generator=gen)
+        k6 = K6.ConvTailsCuda(ring, pb)
+        res["k6"][n] = times(lambda: k6(head))
 
-    tails = [t.clone() for t in k6(377)]
-    baths = [b.replace(noise=rnd(1, NMD, b.nc)) for b in pb]
-    p = rnd(1, NPH)
-    cur, etot = torch.zeros((1, 2), device=dev), torch.zeros((1,), device=dev)
-    f1 = K7.BathForce(baths, 1, NPH, NMD, F.DT, dev)
-    res["device_us"]["k7_1traj"] = _device_us(
-        lambda: f1.pred(p, p, p, ring, 0, pb[0].ml - 1, tails, 3, cur, etot))
+    for name, c in k7_cases(dev).items():
+        res["k7"][name] = {s: times(lambda: c.stage_call(s, True))
+                           for s in STAGES}
+        res["k7"][name]["tile"] = getattr(c.force, "tile", None)
 
-    fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp())
-    fb = [b.replace(noise=rnd(128, F.NMD, b.nc)) for b in fr.baths]
-    pp = rnd(128, fr.nph)
-    rg = pp[:, None].clone()
-    cur2, etot2 = (torch.zeros((128, 2), device=dev),
-                   torch.zeros((128,), device=dev))
-    f128 = K7.BathForce(fb, 128, fr.nph, F.NMD, F.DT, dev)
-    res["device_us"]["k7_flagship_128"] = _device_us(
-        lambda: f128.pred(pp, pp, pp, rg, 0, 0, [None, None], 3, cur2,
-                          etot2))
+    if args.sweep:
+        res["k7_sweep"] = {}
+        for tile in K7.TILES:
+            for name, c in k7_cases(dev, tile=tile).items():
+                key = f"{name} tt{tile}"
+                res["k7_sweep"][key] = sum(device_us(
+                    lambda: c.stage_call("pred", True)).values())
+        ring = 0.05 * torch.randn((1, pb[0].ml, NPH), device=dev,
+                                  generator=gen)
+        res["k6_keep_sweep"] = {}
+        for share in (0.0, 0.4, 0.55, 0.7, 0.85, 1.0):
+            k6 = K6.ConvTailsCuda(ring, pb, keep_l2_share=share)
+            res["k6_keep_sweep"][share] = sum(device_us(
+                lambda: k6(377), reps=200).values())
 
-    r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
-    r.block, r.nstart, r.nstop, r.npie = None, 0, 2, 2
-    r.CalPowerSpec()
-    r.Run()                                            # warm-up
-    res["run_steps_per_s"] = []
-    for _ in range(2):
-        r.outdir = tempfile.mkdtemp()    # Run skips runs it finds finished
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r.Run()
-        torch.cuda.synchronize()
-        res["run_steps_per_s"].append(2 * NMD / (time.perf_counter() - t0))
+    if not args.no_e2e:
+        r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
+        fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp())
+        res["segment"] = segment_times(r, 1, NMD)
+        res["flagship_segment"] = {n: segment_times(fr, n, F.NMD)
+                                   for n in (128, 1024)}
+        r.block, r.nstart, r.nstop, r.npie = None, 0, 2, 2
+        r.CalPowerSpec()
+        r.Run()                                            # warm-up
+        res["run_steps_per_s"] = []
+        for _ in range(3):
+            r.outdir = tempfile.mkdtemp()  # Run skips runs it finds finished
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.Run()
+            torch.cuda.synchronize()
+            res["run_steps_per_s"].append(
+                2 * NMD / (time.perf_counter() - t0))
 
-    res["flagship_traj_steps_per_s"] = {}
-    for n in (128, 1024):
-        fr.RunEnsemble(n, block=None)                  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fr.RunEnsemble(n, block=None)
-        torch.cuda.synchronize()
-        res["flagship_traj_steps_per_s"][n] = \
-            n * F.NMD / (time.perf_counter() - t0)
+        res["flagship_traj_steps_per_s"] = {}
+        for n in (128, 1024):
+            fr.RunEnsemble(n, block=None)                  # warm-up
+            res["flagship_traj_steps_per_s"][n] = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fr.RunEnsemble(n, block=None)
+                torch.cuda.synchronize()
+                res["flagship_traj_steps_per_s"][n].append(
+                    n * F.NMD / (time.perf_counter() - t0))
     print(json.dumps(res), flush=True)
 
 

@@ -217,20 +217,39 @@ def _electron(device, dtype, cats, biased, nmd=32, seed=0):
                     device=device, factorize=False, **extra)
 
 
-@pytest.mark.parametrize("ntraj,ml,head", [(1, 13, 0), (2, 11, 9),
-                                           (7, 30, 29), (37, 1000, 411)])
-def test_conv_tails_matches_twin(cuda, ntraj, ml, head):
-    """Ragged K splits (ml - 2 not a multiple of the 8 taps a CTA takes),
-    one-, two- and four-trajectory tiles with ragged last tiles, a
-    non-contiguous bath, and a ring longer than the kernel read across
+def _k6_baths(cuda, mls, wide):
+    """Two baths (or one, where ``mls`` has one entry): 6 contiguous and
+    4 scattered DOFs, or with ``wide`` 33 and 5 (odd widths: a tap's rows
+    then start off the 16-byte boundaries the bulk copies need)."""
+    cats = ([range(10, 43), [47, 2, 45, 5, 8]] if wide
+            else [range(3, 9), [20, 2, 17, 11]])
+    return [_phonon(cuda, torch.float32, c, ml) for c, ml in zip(cats, mls)]
+
+
+@pytest.mark.parametrize("ntraj,mls,head,wide,nsm", [
+    (1, (13, 12), 0, False, None), (2, (11, 10), 9, False, None),
+    (7, (30, 29), 29, False, None), (37, (1000, 999), 411, False, None),
+    (1, (3,), 1, False, None), (3, (3, 5), 4, True, None),
+    (1, (40, 17), 33, True, None), (5, (64, 64), 7, True, 3),
+    (1, (200, 150), 120, False, 2)])
+def test_conv_tails_matches_twin(cuda, ntraj, mls, head, wide, nsm):
+    """Tap ranges that do not divide evenly over the CTAs, more CTAs
+    than taps (every case with the card's own SM count but the 37 x 1000
+    one), one tap (ml 3), one-, two- and four-trajectory tiles with
+    ragged last tiles, a non-contiguous bath, odd widths (33, 5), tap
+    ranges longer than the stage ring so that it wraps (2 or 3 CTAs for
+    all the taps), and a history ring longer than the kernel read across
     its wrap."""
     from sclmd_tpu_torch.kernels import conv_tails as K6
-    baths = [_phonon(cuda, torch.float32, range(3, 9), ml),
-             _phonon(cuda, torch.float32, [20, 2, 17, 11], ml - 1)]
+    baths = _k6_baths(cuda, mls, wide)
     gen = torch.Generator(device=cuda).manual_seed(ntraj)
-    ring = torch.randn((ntraj, ml + 2, 24), device=cuda, generator=gen)
+    ring = torch.randn((ntraj, max(mls) + 2, 48), device=cuda, generator=gen)
     before = K6.launches
-    got = [t.clone() for t in K6.ConvTailsCuda(ring, baths)(head)]
+    k6 = K6.ConvTailsCuda(ring, baths, nsm=nsm)
+    if nsm is not None:
+        longest = max(r1 - r0 for _, _, _, r0, r1, _, _, _ in k6.plan["desc"])
+        assert longest > k6.plan["nstage"]
+    got = [t.clone() for t in k6(head)]
     want = K6.conv_tails_plain(ring, head, baths)
     ref64 = K6.conv_tails_plain(
         ring.double().cpu(), head,
@@ -242,11 +261,34 @@ def test_conv_tails_matches_twin(cuda, ntraj, ml, head):
         assert _rel(g, w) < 1e-5 and _rel(g, r) < 1e-5
 
 
-def _k7_case(device, dtype, kinds, ntraj, nph=24, nmd=32):
-    """Baths of the listed kinds on disjoint, partly non-contiguous DOF
-    sets, with random noise; kind is ("phonon", ml), ("local",),
-    ("electron",) or ("biased",)."""
-    sets = [[0, 1, 2, 3], [23, 5, 21, 7, 9], [10, 12], [14, 15, 16]]
+@pytest.mark.parametrize("ntraj,mls,wide", [(1, (1000, 999), False),
+                                            (6, (64, 33), True)])
+def test_conv_tails_repeats_bitwise(cuda, ntraj, mls, wide):
+    """Two calls on the same inputs give the same bits (the partial sums
+    are added in a fixed order, whichever CTA comes last), and a call at
+    another head in between leaves nothing behind."""
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+    baths = _k6_baths(cuda, mls, wide)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ring = torch.randn((ntraj, max(mls), 48), device=cuda, generator=gen)
+    k6 = K6.ConvTailsCuda(ring, baths)
+    first = [t.clone() for t in k6(5)]
+    k6(11)
+    for _ in range(3):
+        again = k6(5)
+        torch.cuda.synchronize()
+        for f, g in zip(first, again):
+            assert torch.equal(f, g)
+
+
+DISJOINT = ([0, 1, 2, 3], [23, 5, 21, 7, 9], [10, 12], [14, 15, 16])
+SHARED = ([0, 1, 2, 3, 5], [23, 5, 2, 7, 9], [10, 12], [12, 15, 16])
+
+
+def _k7_case(device, dtype, kinds, ntraj, nph=24, nmd=32, sets=DISJOINT):
+    """Baths of the listed kinds on partly non-contiguous DOF sets
+    (disjoint, or with ``SHARED`` overlapping), with random noise; kind
+    is ("phonon", ml), ("local",), ("electron",) or ("biased",)."""
     baths = []
     rng = np.random.default_rng(len(kinds) + ntraj)
     for k, cats in zip(kinds, sets):
@@ -263,22 +305,11 @@ def _k7_case(device, dtype, kinds, ntraj, nph=24, nmd=32):
     return baths
 
 
-@pytest.mark.parametrize("kinds", [
-    (("phonon", 12), ("local",), ("electron",), ("biased",)),
-    (("phonon", 2), ("biased",)),
-    (("electron",), ("electron",))])
-@pytest.mark.parametrize("tile", [1, 2, 8])
-def test_bath_force_matches_twin(cuda, kinds, tile):
-    """Predictor, corrector and last corrector against the twins on the
-    same tensors: every bath kind, bias on and off, non-contiguous
-    cids, tiles of one, two and eight trajectories (ragged)."""
+def _k7_against_twin(cuda, kinds, ntraj, sets=DISJOINT, tile=None):
     from sclmd_tpu_torch.kernels import bath_force as K7
-    nsm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    ntraj = {1: 3, 2: 4 * nsm + 1, 8: 16 * nsm + 3}[tile]
-    assert K7.tile_size(ntraj, cuda) == tile
     nph, nmd = 24, 32
-    baths = _k7_case(cuda, torch.float32, kinds, ntraj, nph, nmd)
-    gen = torch.Generator(device=cuda).manual_seed(tile)
+    baths = _k7_case(cuda, torch.float32, kinds, ntraj, nph, nmd, sets)
+    gen = torch.Generator(device=cuda).manual_seed(ntraj)
 
     def rnd(*shape):
         return torch.randn(shape, device=cuda, generator=gen)
@@ -289,7 +320,7 @@ def test_bath_force_matches_twin(cuda, kinds, tile):
     mlr = max(b.ml for b in baths) + 1
     ring = rnd(ntraj, mlr, nph)
     tails = [rnd(ntraj, b.nc, 2) if b.ml > 2 else None for b in baths]
-    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda)
+    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda, tile=tile)
     res = {}
     for name, run in (("kernel", force), ("twin", None)):
         rg = ring.clone()
@@ -317,6 +348,73 @@ def test_bath_force_matches_twin(cuda, kinds, tile):
                          **{f"fb{i}": fb for i, fb in enumerate(fbs)})
     for k, v in res["twin"].items():
         assert _rel(res["kernel"][k], v) < 1e-5, k
+
+
+@pytest.mark.parametrize("kinds", [
+    (("phonon", 12), ("local",), ("electron",), ("biased",)),
+    (("phonon", 2), ("biased",)),
+    (("electron",), ("electron",))])
+@pytest.mark.parametrize("tile", [1, 2, 4, 8])
+def test_bath_force_matches_twin(cuda, kinds, tile):
+    """Predictor, corrector and last corrector against the twins on the
+    same tensors: every bath kind, bias on and off, non-contiguous
+    cids, tiles of one, two, four and eight trajectories (ragged)."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    nsm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ntraj = {1: 3, 2: 2 * nsm + 1, 4: 4 * nsm + 1, 8: 8 * nsm + 3}[tile]
+    assert K7.tile_size(ntraj, nsm) == tile
+    _k7_against_twin(cuda, kinds, ntraj)
+
+
+@pytest.mark.parametrize("kinds,ntraj,sets,tile", [
+    ((("phonon", 12), ("phonon", 2)), 1, DISJOINT, None),
+    ((("biased",), ("local",)), 1, DISJOINT, None),
+    ((("biased",), ("local",)), 5, DISJOINT, 4),
+    ((("phonon", 12), ("biased",), ("local",), ("electron",)), 1, SHARED,
+     None),
+    ((("electron",), ("biased",), ("local",), ("phonon", 5)), 7, SHARED, 2),
+    ((("electron",), ("biased",), ("local",), ("phonon", 5)), 11, SHARED,
+     8)])
+def test_bath_force_shapes(cuda, kinds, ntraj, sets, tile):
+    """One trajectory (a single CTA), three matrices (a biased electron
+    bath) next to one (a local phonon bath) in one launch, and baths
+    that share DOFs (their forces add up on those), in the staged form
+    (one or two trajectories per CTA) and the tiled one."""
+    _k7_against_twin(cuda, kinds, ntraj, sets, tile)
+
+
+def test_bath_force_outputs_outlive_two_stages(cuda):
+    """What a stage returns is still intact after the next two stages
+    and after the next call of the same stage; the call after that
+    reuses the buffer."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    nph, nmd, ntraj = 24, 32, 2
+    baths = _k7_case(cuda, torch.float32, (("phonon", 2), ("electron",)),
+                     ntraj, nph, nmd)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p, q, pf = (torch.randn((ntraj, nph), device=cuda, generator=gen)
+                for _ in range(3))
+    mask = torch.ones(nph, device=cuda)
+    ring = torch.randn((ntraj, 2, nph), device=cuda, generator=gen)
+    cur = torch.zeros((ntraj, 2), device=cuda)
+    etot = torch.zeros((ntraj,), device=cuda)
+    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda)
+    tails = [None, None]
+
+    def step(p, q):
+        ph, qt = force.pred(p, q, pf, ring, 0, None, tails, 3, cur, etot)
+        pc, _ = force.corr(ph, qt, pf, p, ph, tails, 4)
+        return (ph, qt), force.corr(pc, qt, pf, p, ph, tails, 4, mask=mask)
+
+    (ph, qt), (p1, q1) = step(p, q)
+    kept = [t.clone() for t in (ph, qt, p1, q1)]
+    (ph2, _), (p2, q2) = step(p1, q1)
+    torch.cuda.synchronize()
+    for t, k in zip((ph, qt, p1, q1), kept):
+        assert torch.equal(t, k)
+    assert ph2.data_ptr() != ph.data_ptr() and p2.data_ptr() != p1.data_ptr()
+    (ph3, _), _ = step(p2, q2)
+    assert ph3.data_ptr() == ph.data_ptr()
 
 
 @pytest.mark.parametrize("ntraj", [1, 3])
