@@ -29,6 +29,7 @@ not 0 and no result line is printed):
    the primary junction, the flagship at each chunk size of phase 10),
    with the profiler's device duration (``device_ms``) beside the event
    time, which for so short a kernel is the host's time to enqueue it;
+   K5 at each chunk size of phase 13, with its float32 twin's time;
    with the least time the card could take for each (``bound_ms``);
 8. K6 ``conv_tails`` and K7 ``bath_force`` against their twins: K6 at
    the primary shapes for one trajectory and a ragged batch of 37; K7
@@ -45,14 +46,27 @@ not 0 and no result line is printed):
    currents' sign from common random numbers;
 11. 512 plain steps of the ``md.Run`` path (primary, one trajectory) and
    of the flagship ensemble chunk (4 trajectories), injected draws, on
-   the card (kernels) and on the CPU (twins, float64).
+   the card (kernels) and on the CPU (twins, float64);
+12. K5 ``ch_force`` at each chunk size of phase 13, at thermal
+   displacements: against its autograd twin in float64 on the CPU, and
+   against the same twin in float32 on the card; repeated calls agree
+   bitwise;
+13. ``RunEnsemble`` on the many-body flagship (the C/H force driver
+   through ``AddPotential``: K5 twice a step, K7 three times) at 128 and
+   1024 trajectories, nsteps 1024, after a warm-up of each, with both
+   launch counters read around it, a bounded kinetic energy at the end,
+   and the heat currents' sign from a runner with swapped temperatures on
+   the same draws;
+14. 48 many-body steps of a 4-trajectory flagship chunk, injected draws,
+   on the card (K5, K7) and on the CPU (twins, float64).
 
 The workloads are the primary junction of bench.py
 (``sclmd_tpu_torch.tools.primary``: a 100-atom harmonic chain, nph 300,
 two non-local phonon baths of 90 DOFs with 1000 memory taps, nmd 2048,
 dt 0.25/0.658, T 300 K +- 5 %) and its harmonic flagship
 (``sclmd_tpu_torch.tools.flagship``: the 201-atom C/H junction, nph 603,
-two electron baths of 150 DOFs, 120 DOFs fixed, nmd 1024). The line
+two electron baths of 150 DOFs, 120 DOFs fixed, nmd 1024; many-body:
+the same junction with ``CHDriver`` forces on the npz geometry). The line
 before the last is the card's name and power limit; the last line is
 the result JSON; the line before it lists every kernel with its
 launches on the main path, error against its twin, time, twin time,
@@ -77,7 +91,18 @@ import torch
 # individual heat-current samples pass through zero.
 RTOL = 1e-4
 SIZES = (256, 1024)     # RunEnsemble trajectory counts of phase 5
-FLAG_SIZES = (128, 1024)  # plain-path RunEnsemble counts of phase 10
+FLAG_SIZES = (128, 1024)  # plain-path RunEnsemble counts of phases 10, 13
+# K5 against its twins (phase 12). The float64 twin on the CPU is the
+# yardstick, at RTOL of the largest force. The float32 twin on the card
+# rounds each 50-angstrom coordinate to 4e-6 angstrom before it takes a
+# bond's difference, which the kernel does not (it adds displacements to
+# reference difference vectors): the two float32 results differ by that
+# rounding, ~1e-5 in the force's units against forces of ~0.2
+K5_TWIN32_RTOL = 1e-3
+# a trajectory's kinetic energy at the end of a many-body run: 483 free
+# DOFs at 300 K hold ~20 eV, zero-point motion included; a force
+# that is a little wrong heats the junction by orders of magnitude
+KE_BOUND = 100.0
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W):
 # float32 outside the tensor cores, TF32 on them, and HBM bandwidth. A
 # bound is the larger of the operations over the peak of their type and
@@ -253,6 +278,9 @@ def main():
                            for n, ops in plain_ops["k6"].items()}
     times["bath_force"] = {name: k7_times(c)
                            for name, c in plain_ops["k7_main"].items()}
+    k5_ops = k5_operands(dev)
+    times["ch_force"] = {n: k5_times(k5_ops["driver"], q)
+                         for n, q in k5_ops["q"].items()}
     print(json.dumps({"phase": 7, "ms": times}), flush=True)
 
     # 8. K6 and K7 against their twins
@@ -263,12 +291,18 @@ def main():
     ens_launches = phase_flagship(dev)
     phase_card_vs_cpu(dev)
 
+    # 12. K5 against its twins, 13. the many-body flagship, 14. card vs CPU
+    k5_abs = check_k5(k5_ops)
+    mb_launches = phase_many_body(dev)
+    phase_many_body_card_vs_cpu(dev)
+
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
     # K6 at one trajectory; K7 at one primary trajectory (two thirds of
     # its launches), the mean of its three stages
     k6_t = times["conv_tails"][1]
     k7_t = times["bath_force"]["primary_1"]["mean"]
+    k5_t = times["ch_force"][min(times["ch_force"])]
 
     def row(name, source, replaces, launches_, err, tm):
         return {"name": name, "route": "cuda", "source": source,
@@ -293,8 +327,11 @@ def main():
             run_launches["conv_tails"], k6_abs, k6_t),
         row("bath_force", "sclmd_tpu_torch/csrc/bath_force.cu",
             "a5170d2:sclmd_tpu/ops/kernels.py:98",
-            run_launches["bath_force"] + ens_launches["bath_force"],
-            k7_abs, k7_t),
+            run_launches["bath_force"] + ens_launches["bath_force"]
+            + mb_launches["bath_force"], k7_abs, k7_t),
+        row("ch_force", "sclmd_tpu_torch/csrc/ch_force.cu",
+            "sclmd_tpu/models/tersoff.py:186", mb_launches["ch_force"],
+            k5_abs, k5_t),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -728,6 +765,163 @@ def phase_card_vs_cpu(dev):
     print(json.dumps({"phase": 11, "rel_err": errs, "rtol": RTOL}),
           flush=True)
     assert max(errs.values()) <= RTOL, errs
+
+
+# --- the many-body flagship: K5 ----------------------------------------------
+def k5_operands(dev):
+    """K5's driver and its inputs at the shapes the many-body flagship
+    gives it: thermal-start displacements (300 K, the runner's own
+    ``thermal_init``) at each chunk size of phase 13."""
+    from sclmd_tpu_torch.md import thermal_init
+    from sclmd_tpu_torch.tools import flagship as F
+
+    fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp(),
+                           many_body=True)
+    system = fr._build_system()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    sizes = sorted({n for ntraj in FLAG_SIZES
+                    for n in F.chunk_sizes(system, ntraj)})
+    qs = {n: thermal_init(torch.rand((n, fr.nph), device=dev, generator=gen),
+                          system, fr.hw, fr.U, F.T).q.contiguous()
+          for n in sizes}
+    return {"driver": fr.pforce, "q": qs}
+
+
+def k5_times(drv, q):
+    """K5 at one chunk size: kernel (CUDA events and the profiler's
+    device duration, as for K7), its float32 autograd twin on the card
+    (no single library call computes it), and the bound: q read and f
+    written once, and the operations this geometry needs
+    (``kernels.ch_force.work_counts``) at the float32 peak."""
+    from sclmd_tpu_torch.kernels.ch_force import work_counts
+    from sclmd_tpu_torch.tools.plain_bench import device_us
+    w = work_counts(drv.kernel.cuda.pack)
+    n = q.shape[0]
+    t = _timed(lambda: drv.force_torch(q), lambda: drv.kernel.plain(q), None,
+               n * w["ops"], n * w["bytes"], 200, 5)
+    t["event"] = t["kernel"]
+    t["device"] = 1e-3 * sum(device_us(lambda: drv.force_torch(q)).values())
+    if abs(t["event"] - t["device"]) > 0.1 * t["device"]:
+        t["kernel"] = t["device"]
+    t["work"] = w
+    return t
+
+
+def check_k5(ops):
+    """Phase 12: K5 against the float64 twin on the CPU and the float32
+    twin on the card, at every chunk size; returns the largest absolute
+    error against the float64 twin."""
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver
+    drv = ops["driver"]
+    ref = CHDriver(drv.axyz, dtype=torch.float64, device="cpu")
+    worst = 0.0
+    for n, q in ops["q"].items():
+        e, f = drv.energy_force_torch(q)
+        again = drv.force_torch(q)
+        torch.cuda.synchronize()
+        # the CPU twin's (traj, 171, 8, 8) temporaries: 64 at a time
+        qc = q.double().cpu()
+        pairs = [ref.energy_force_torch(qc[i:i + 64])
+                 for i in range(0, n, 64)]
+        e64 = torch.cat([p[0] for p in pairs])
+        f64 = torch.cat([p[1] for p in pairs])
+        f32 = drv.kernel.plain(q)
+        rel64, err = rel_err(f, f64)
+        rel32 = rel_err(f, f32)[0]
+        e_rel = rel_err(e, e64)[0]
+        worst = max(worst, err)
+        print(json.dumps({
+            "phase": 12, "ntraj": n, "rel_err_float64_twin": rel64,
+            "max_abs_err": err, "energy_rel_err": e_rel, "rtol": RTOL,
+            "rel_err_float32_twin": rel32, "rtol_float32": K5_TWIN32_RTOL,
+            "float32_twin_vs_float64": rel_err(f32, f64)[0],
+            "largest_force": float(f64.abs().max()),
+            "bitwise_repeat": bool(torch.equal(f, again))}), flush=True)
+        assert rel64 <= RTOL and e_rel <= RTOL, \
+            f"K5 disagrees with its float64 twin: {rel64}, {e_rel}"
+        assert rel32 <= K5_TWIN32_RTOL, \
+            f"K5 disagrees with its float32 twin: {rel32}"
+        assert torch.equal(f, again), "K5 does not repeat bitwise"
+    return worst
+
+
+def phase_many_body(dev):
+    """Phase 13: RunEnsemble on the many-body flagship."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.tools import flagship as F
+
+    hot, cold = F.T * (1 + F.DELTA / 2), F.T * (1 - F.DELTA / 2)
+    runs = {}
+    for temps in ((hot, cold), (cold, hot)):
+        r = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp(),
+                              temps=temps, many_body=True)
+        for ntraj in FLAG_SIZES:          # warm-up of every chunk shape
+            r.RunEnsemble(ntraj, nsteps=F.NMD)
+        torch.cuda.synchronize()
+        K5.reset_count()
+        K7.reset_count()
+        e2e, means = {}, {}
+        for ntraj in FLAG_SIZES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means[ntraj] = r.RunEnsemble(ntraj, nsteps=F.NMD)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ke = r.energy(r.state)
+            assert means[ntraj].shape == (ntraj, 2)
+            assert np.isfinite(means[ntraj]).all()
+            assert np.isfinite(ke) and 0.0 < ke < KE_BOUND, ke
+            e2e[ntraj] = {"s": wall,
+                          "traj_steps_per_s": ntraj * F.NMD / wall,
+                          "kinetic_energy_end": ke,
+                          "J_left": float(means[ntraj][:, 0].mean()),
+                          "J_right": float(means[ntraj][:, 1].mean())}
+        runs[temps] = (e2e, means, {"ch_force": K5.launches,
+                                    "bath_force": K7.launches})
+    e2e, fwd, launches = runs[(hot, cold)]
+    rev = runs[(cold, hot)][1]
+    nchunks = sum(len(F.chunk_sizes(r._build_system(), n))
+                  for n in FLAG_SIZES)
+    assert launches == {"ch_force": 2 * F.NMD * nchunks,
+                        "bath_force": 3 * F.NMD * nchunks}, launches
+    n = max(FLAG_SIZES)
+    j = (fwd[n] - rev[n]) / 2             # common random numbers
+    jl, jr = float(j[:, 0].mean()), float(j[:, 1].mean())
+    sem = (j.std(axis=0) / np.sqrt(n)).tolist()
+    print(json.dumps({"phase": 13, "launches": launches, "e2e": e2e,
+                      "ke_bound": KE_BOUND, "J_left": jl, "J_right": jr,
+                      "J_sem": sem}), flush=True)
+    assert jl > 0 > jr, (jl, jr, sem)
+    return launches
+
+
+def phase_many_body_card_vs_cpu(dev, nsteps=48):
+    """Phase 14: a many-body flagship chunk on the card and on the CPU
+    (float64), the same injected draws."""
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
+    from sclmd_tpu_torch.tools import flagship as F
+
+    rng = np.random.default_rng(14)
+    f0 = F.flagship_runner(torch.float64, "cpu", tempfile.mkdtemp())
+    rs = [rng.standard_normal((4,) + np.shape(b.nstd)) for b in f0.baths]
+    us = rng.uniform(size=(4, f0.nph))
+    out = []
+    for dtype, device in ((torch.float32, dev), (torch.float64, "cpu")):
+        fr = F.flagship_runner(dtype, device, tempfile.mkdtemp(),
+                               many_body=True)
+        fin, sums, ok = fused_chunk(
+            fr._build_system(), bath_factors(fr.baths, device),
+            [torch.as_tensor(x, dtype=dtype, device=device) for x in rs],
+            torch.as_tensor(us, dtype=dtype, device=device), fr.hw, fr.U,
+            F.T, nsteps, 0, None, nsteps // 4)
+        assert bool(ok)
+        out.append((fin.p, fin.q, sums))
+    errs = [rel_err(a, b)[0] for a, b in zip(*out)]
+    print(json.dumps({"phase": 14, "nsteps": nsteps,
+                      "rel_err": dict(zip(("p", "q", "cur_sum"), errs)),
+                      "rtol": RTOL}), flush=True)
+    assert max(errs) <= RTOL, errs
 
 
 if __name__ == "__main__":

@@ -118,6 +118,12 @@ def load() -> ctypes.CDLL:
     lib.bath_force_threads.restype = ci
     lib.bath_force_noop.argtypes = [vp]
     lib.bath_force_noop.restype = ci
+    lib.ch_force_f32.argtypes = [vp, vp]
+    lib.ch_force_f32.restype = ci
+    lib.ch_force_max_threads.argtypes = []
+    lib.ch_force_max_threads.restype = ci
+    lib.ch_force_max_nn.argtypes = []
+    lib.ch_force_max_nn.restype = ci
     _lib = lib
     return lib
 

@@ -8,7 +8,9 @@ integrators advance the whole batch:
   memory-kernel phonon baths): per step kernel K6 (``conv_tails``) for
   the memory-kernel tails shared by the step's three bath-force
   evaluations, and kernel K7 (``bath_force``) for each evaluation; the
-  potential force ``-dyn q`` is a ``torch.matmul``. The velocity history
+  potential force is a force driver's (``force_fn``: for the C/H
+  junction kernel K5, ``ch_force``, twice a step) or the harmonic
+  ``-dyn q``, a ``torch.matmul``. The velocity history
   is a circular ring with a head index, turned back into the newest-first
   ``phis`` only at the segment's end.
 * ``run_segment_blocked``, the blocked memory-kernel convolution
@@ -27,14 +29,16 @@ Step structure (the reference's 3-bath-eval / 2-potential-eval scheme):
     f2  = V'(q') + sum_b bforce_b(t+1, p1)
     p'  = p_half + f2 dt/2 ;  constrain p', q'
 
-Ported so far: the harmonic force (``dyn``), both integrators, and the
-``md`` runner's ``Run`` (segments, ``MD{j}.npz`` checkpoints with the
-JAX package's keys and shapes, so either package resumes the other's
-checkpoints) and fused ``RunEnsemble``. Random draws come from the
-counter-keyed ``torch.Generator`` schedule of ``parallel.ensemble``, so
-they are not the JAX package's draws; tests inject the same noise into
-both. Still to port (ROADMAP queue 1): force drivers and ``CompareForce``,
-and the checkpointed/segmented ``RunEnsemble``.
+Ported so far: the harmonic force (``dyn``) and force drivers
+(``AddPotential``, ``CompareForce``), both integrators, and the ``md``
+runner's ``Run`` (segments, ``MD{j}.npz`` checkpoints with the JAX
+package's keys and shapes, so either package resumes the other's
+checkpoints) and fused ``RunEnsemble``. A system with a force driver
+takes the plain step: K1 fuses the harmonic force into its recurrence.
+Random draws come from the counter-keyed ``torch.Generator`` schedule of
+``parallel.ensemble``, so they are not the JAX package's draws; tests
+inject the same noise into both. Still to port (ROADMAP queue 1): the
+checkpointed/segmented ``RunEnsemble`` and traced ``force_params``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from __future__ import annotations
 import functools
 import os
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -76,10 +80,11 @@ class MDState:
 
 @dataclass
 class GLESystem:
-    """Everything the step needs: harmonic force ``-dyn q``, the baths,
-    the constraint mask and the static run parameters."""
+    """Everything the step needs: the potential force (a driver's
+    ``force_fn``, else the harmonic ``-dyn q``), the baths, the
+    constraint mask and the static run parameters."""
 
-    dyn: torch.Tensor            # (nph, nph)
+    dyn: Optional[torch.Tensor]  # (nph, nph), or None with a force_fn
     baths: tuple                 # EBath/PhBath, each with (traj, nmd, nc) noise
     mask: torch.Tensor           # (nph,) 1.0 = free, 0.0 = constrained
     dt: float
@@ -95,6 +100,12 @@ class GLESystem:
     savep: bool = False
     saveq: bool = False
     savef: bool = False
+    # a force driver's batched q (traj, nph) -> force (traj, nph); taken
+    # instead of -dyn q (never added to it)
+    force_fn: Optional[Callable] = None
+    # a second driver's force, compared with the harmonic one: the plain
+    # path's "cf" output is cf_fn(q) + dyn q
+    cf_fn: Optional[Callable] = None
 
     def replace(self, **changes) -> "GLESystem":
         return replace(self, **changes)
@@ -107,8 +118,13 @@ class GLESystem:
         return (-self.dyn).T
 
     def potential_force(self, q: torch.Tensor) -> torch.Tensor:
-        """-dyn q per trajectory: one GEMM on the card; on the CPU the
-        batch-invariant ``matvec`` (see ops.functions)."""
+        """The force driver's force if one is attached, else -dyn q per
+        trajectory: one GEMM on the card; on the CPU the batch-invariant
+        ``matvec`` (see ops.functions)."""
+        if self.force_fn is not None:
+            return self.force_fn(q)
+        if self.dyn is None:
+            raise ValueError("no driver, no md")
         if q.device.type == "cuda":
             return torch.mm(q, self.neg_dyn_t)
         return -matvec(self.dyn, q)
@@ -118,8 +134,8 @@ def initial_state(system: GLESystem, ntraj: int = 1,
                   dtype=None) -> MDState:
     """Zero state for ``ntraj`` trajectories."""
     nph, ml = system.nph, system.ml
-    dtype = dtype or system.dyn.dtype
-    dev = system.dyn.device
+    dtype = dtype or system.mask.dtype
+    dev = system.mask.device
     z = torch.zeros((ntraj, nph), dtype=dtype, device=dev)
     return MDState(t=torch.zeros((ntraj,), dtype=torch.long, device=dev),
                    p=z, q=z.clone(),
@@ -183,7 +199,9 @@ def run_segment(system: GLESystem, state: MDState, nsteps: int,
     nsteps, nb) and, as the system's save flags ask, "ps"/"qs" (traj,
     nsteps, nph) (the state at each step's start), "fbaths" (traj,
     nsteps, nb, nph) (the predictor bath forces) and "f" (traj, nsteps,
-    nph) (the last corrector's total force).
+    nph) (the last corrector's total force); with a ``cf_fn``, "cf"
+    (traj, nsteps, nph): the compared driver's force plus ``dyn q`` at
+    each step's start.
 
     ``t0`` is the segment's global step offset: step s reads noise row
     (t0+s) mod nmd for the predictor and (t0+s+1) mod nmd for the
@@ -222,6 +240,8 @@ def run_segment(system: GLESystem, state: MDState, nsteps: int,
         fbs = [torch.empty((ntraj, b.nc), dtype=dtype, device=dev)
                for b in system.baths]
         f_last = torch.empty((ntraj, nph), dtype=dtype, device=dev)
+    if system.cf_fn is not None:
+        ys["cf"] = buf(nph)
 
     p, q = state.p.contiguous(), state.q.contiguous()
     qprev = state.qhis[:, 0]
@@ -233,6 +253,8 @@ def run_segment(system: GLESystem, state: MDState, nsteps: int,
             ys["ps"][:, s] = p
         if system.saveq:
             ys["qs"][:, s] = q
+        if system.cf_fn is not None:
+            ys["cf"][:, s] = system.cf_fn(q) + matvec(system.dyn, q)
         if tails_of is not None:
             for i, tl in zip(tidx, tails_of(head)):
                 tails[i] = tl
@@ -342,9 +364,12 @@ def run_segment_blocked(system: GLESystem, state: MDState, nsteps: int,
 
 def blocked_supports(system: GLESystem) -> bool:
     """True when ``run_segment_blocked`` runs this system: non-local
-    phonon baths only (K1 has no electron or local rule yet) and no
-    per-step outputs beyond etot and cur."""
+    phonon baths only (K1 has no electron or local rule yet), the
+    harmonic force (K1 fuses ``-dyn q`` into its recurrence, so a force
+    driver takes the plain step) and no per-step outputs beyond etot and
+    cur."""
     return (all(isinstance(b, PhBath) and b.ml > 1 for b in system.baths)
+            and system.force_fn is None and system.cf_fn is None
             and not (system.savep or system.saveq or system.savef))
 
 
@@ -379,6 +404,9 @@ class md:
         self._calls = 0
         self.saveall = self.savep = self.saveq = self.rmnc = False
         self.nstep = None
+        self.pforce = None
+        self.cf = False
+        self.forcedriver = None
         self.constraint = None
         self.atomlist = None
         self.initranvel = True
@@ -447,6 +475,12 @@ class md:
         self.baths.append(bath.to(self.device))
         self.ml = max(self.ml, bath.ml)
 
+    def AddPotential(self, pint):
+        """Attach a force driver: its batched ``force_torch(q)`` (else a
+        callable ``force``) replaces ``-dyn q`` in the step. The driver's
+        tensors must live on the runner's device."""
+        self.pforce = pint
+
     def AddConstr(self, constr):
         self.constraint = constr
 
@@ -483,6 +517,21 @@ class md:
     def noranvel(self, rf=False):
         self.initranvel = rf
 
+    def SetSyslist(self, syslist):
+        """Reset the system-atom list."""
+        self.syslist = np.asarray(syslist, dtype=np.int64)
+        self.na = len(self.syslist)
+        self.nph = 3 * self.na
+        if self.nta is not None and self.na > self.nta:
+            raise ValueError("system atom number larger than total")
+
+    def CompareForce(self, forcedriver):
+        """Record, at every step of ``Run``, ``forcedriver``'s force
+        minus the harmonic one (``deltaforce.run{j}.npy``, in
+        eV/angstrom units through the driver's ``conv``)."""
+        self.cf = True
+        self.forcedriver = forcedriver
+
     def ResetHis(self) -> MDState:
         """Zeroed history rings as a fresh one-trajectory state."""
         return initial_state(self._build_system(), 1, dtype=self.dtype)
@@ -497,12 +546,22 @@ class md:
                 mask[np.asarray(list(grp), dtype=np.int64)] = 0.0
         return torch.as_tensor(mask, dtype=self.dtype, device=self.device)
 
+    @staticmethod
+    def _driver_force(driver):
+        fn = getattr(driver, "force_torch", None)
+        if fn is None and callable(getattr(driver, "force", None)):
+            fn = driver.force
+        return fn
+
     def _build_system(self) -> GLESystem:
-        if self.dyn is None:
-            raise ValueError("no driver, no md: the port runs the harmonic "
-                             "force from dyn (force drivers: ROADMAP queue "
-                             "1 item 7)")
+        force_fn = None if self.pforce is None else \
+            self._driver_force(self.pforce)
+        if self.dyn is None and force_fn is None:
+            raise ValueError("no driver, no md")
+        cf_fn = self._driver_force(self.forcedriver) \
+            if self.cf and self.forcedriver is not None else None
         return GLESystem(
+            force_fn=force_fn, cf_fn=cf_fn,
             dyn=self.dyn, baths=tuple(self.baths),
             mask=self._constraint_mask(),
             dt=self.dt, nph=self.nph, ml=self.ml, nmd=self.nmd,
@@ -519,7 +578,7 @@ class md:
     def initialise(self, system: GLESystem, seed: Optional[int] = None):
         """The start of ``Run``: a Bose-weighted thermal draw (stream =
         number of baths of the schedule seeded ``seed``), or zeros."""
-        if not self.initranvel:
+        if self.dyn is None or not self.initranvel:
             return initial_state(system, 1, dtype=self.dtype)
         from sclmd_tpu_torch.parallel.ensemble import init_draws
         seed = self._next_seed() if seed is None else seed
@@ -761,7 +820,7 @@ class md:
         chunk = max(1, min(int(chunk), ntraj))
 
         seed = self._next_seed()
-        thermal = self.initranvel
+        thermal = self.initranvel and self.dyn is not None
         facs = bath_factors(self.baths, self.device)
         cur_sum = np.zeros((ntraj, nb))
         cur_cnt = nsteps - min(skip, nsteps)
@@ -837,6 +896,9 @@ class md:
         final MD{j} checkpoint."""
         self.etot = outputs.get("etot")
         self.curs = outputs.get("cur")
+        if self.cf and "cf" in outputs:
+            np.save(os.path.join(self.outdir, f"deltaforce.run{j}"),
+                    outputs["cf"] / np.asarray(self.forcedriver.conv))
         if self.savep and "ps" in outputs:
             power = self._power(outputs["ps"])
             if self.power is None or j == self.nstart:

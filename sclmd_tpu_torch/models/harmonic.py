@@ -34,16 +34,26 @@ class HarmonicDriver:
         else:
             self.els, self.xyz = None, None
             self.conv = np.ones(self.nph)
-        self.f0 = torch.zeros((self.nph,), dtype=dtype, device=device)
+        self.initforce()
+
+    def initforce(self):
+        self.f0 = torch.zeros_like(self.dyn[0])
 
     def force(self, q: torch.Tensor) -> torch.Tensor:
         return -(q @ self.dyn.T)
+
+    # the batched path the md runner picks (AddPotential)
+    force_torch = force
+    absforce = force
 
     def energy(self, q: torch.Tensor) -> torch.Tensor:
         return 0.5 * ((q @ self.dyn.T) * q).sum(-1)
 
     def dynmat(self, q=None) -> torch.Tensor:
         return self.dyn
+
+    def quit(self):
+        pass
 
 
 def chain_dynmat(n: int, k: float = 0.1, kend: float | None = None,

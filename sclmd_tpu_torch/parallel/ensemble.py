@@ -97,11 +97,11 @@ def ensemble_states(system: GLESystem, n: int, seed: Optional[int] = None,
     ensemble: zeros, or Bose-weighted thermal draws from the schedule
     (stream = number of baths)."""
     hi = n if hi is None else hi
-    dtype = dtype or system.dyn.dtype
+    dtype = dtype or system.mask.dtype
     if seed is None:
         return initial_state(system, hi - lo, dtype=dtype)
     us = init_draws(seed, len(system.baths), lo, hi, system.nph,
-                    system.dyn.device, dtype)
+                    system.mask.device, dtype)
     return thermal_init(us, system, hw, evecs, T)
 
 
@@ -111,7 +111,10 @@ def estimate_traj_bytes(system: GLESystem, nsteps: int,
     the noise series and its synthesis transients, the blocked path's
     history, tails, ring and FFT scratch (``block`` given) or the plain
     path's tail partials (``block`` None), the state and history ring,
-    and the per-step outputs, with a 2x allocator-slack factor."""
+    and the per-step outputs, with a 2x allocator-slack factor. A force
+    driver adds nothing: kernel K5 keeps its whole working set in shared
+    memory (the autograd twin's (traj, na, nn, nn) temporaries are what a
+    CPU run pays)."""
     item = torch.empty((), dtype=system.mask.dtype).element_size()
     nb = len(system.baths)
     total = 0
@@ -141,7 +144,7 @@ def auto_chunk(system: GLESystem, ntraj: int, nsteps: int,
     the same 40 GB nominal budget. ``depth`` chunk footprints are live
     at once (2 when RunEnsemble keeps one chunk in flight)."""
     if budget_bytes is None:
-        dev = system.dyn.device
+        dev = system.mask.device
         if dev.type == "cuda":
             budget_bytes = torch.cuda.get_device_properties(dev).total_memory // 2
         else:

@@ -1,12 +1,16 @@
-"""The harmonic flagship junction of the JAX package's bench.py
-(``_flagship_build``, bench.py:441-461, at ``flagship``'s nmd, :396): the
-201-atom C/H junction of the committed ``scripts/flagship_negf.npz``
-(geometry ``els``/``pos`` and its 603 x 603 dynamical matrix ``dyn_ev2``),
+"""The flagship junction of the JAX package's bench.py: the 201-atom
+C/H junction of the committed ``scripts/flagship_negf.npz`` (the relaxed
+geometry ``els``/``pos`` and its 603 x 603 dynamical matrix ``dyn_ev2``),
 two electron baths on the 150 lead DOFs of each side with friction
 I / (100 fs) at T (1 +- delta/2), T 300 K, delta 0.1, wmax 1.0, nw 500,
 the 120 DOFs of the outer atoms fixed, dt 0.25/0.658, nmd 1024.
-The many-body C/H force driver of the bench's flagship is not ported
-(kernel K5): the force is the harmonic one from ``dyn_ev2``.
+
+Two forms: the harmonic one (``_flagship_build``, bench.py:441-461),
+whose force is ``-dyn q`` from ``dyn_ev2``; and the many-body one
+(``flagship``, bench.py:370-431; ``many_body=True``), whose force is the
+C/H driver's (``CHDriver`` on the npz geometry, which the bench reaches
+by relaxing ``structure.data``; kernel K5 on the card), with ``dyn_ev2``
+kept for the thermal start.
 """
 
 import os
@@ -32,15 +36,20 @@ def flagship_junction():
 
 
 def flagship_runner(dtype, device, outdir, nmd: int = NMD, seed: int = 11,
-                    temps=(T * (1 + DELTA / 2), T * (1 - DELTA / 2))):
+                    temps=(T * (1 + DELTA / 2), T * (1 - DELTA / 2)),
+                    many_body: bool = False):
     """An ``md.md`` runner of the flagship junction writing to ``outdir``,
-    with its left and right leads at ``temps``."""
+    with its left and right leads at ``temps``; ``many_body`` attaches
+    the C/H force driver."""
     from sclmd_tpu_torch import baths as B
     from sclmd_tpu_torch.md import md
 
     axyz, part, dyn = flagship_junction()
     r = md(DT, nmd, T, axyz=axyz, dyn=dyn, dtype=dtype, seed=seed,
            outdir=outdir, device=device)
+    if many_body:
+        from sclmd_tpu_torch.models.hydrocarbon import CHDriver
+        r.AddPotential(CHDriver(axyz, dtype=dtype, device=device))
     for cats, tt in zip((part["ecatsl"], part["ecatsr"]), temps):
         eta = (1.0 / DAMP) * np.identity(len(cats))
         r.AddBath(B.ebath(cats, tt, r.dt, r.nmd, wmax=1.0, nw=500,

@@ -1,6 +1,7 @@
 """Times of the plain GLE step's kernels and entry points on the card.
 
     python -m sclmd_tpu_torch.tools.plain_bench [--label NAME] [--sweep]
+        [--workload plain|flagship_mb]
 
 Needs a CUDA card. Measures the package it is imported from, so two
 versions are compared by running this file from the root of each
@@ -35,6 +36,19 @@ and one JSON line:
 * ``flagship_traj_steps_per_s``: ``RunEnsemble(block=None)`` on the
   harmonic flagship at 128 and 1024 trajectories, five calls each after a
   warm-up (the host's draws and kappa files spread them).
+
+``--workload flagship_mb`` measures the many-body flagship instead (the
+C/H force driver through ``AddPotential``):
+
+* ``k5``: K5 at 128 trajectories and at the chunk size of the
+  1024-trajectory run: ``event_us``, ``device_us``, ``enqueue_us`` as
+  above, ``twin_us`` (the autograd twin on the card, CUDA events over 10
+  calls) and the work of one evaluation (``kernels.ch_force.work_counts``);
+* ``flagship_mb_segment``: 1024 plain steps of ``md.run_segment`` at 128
+  and 1024 trajectories (``host_s``, ``wall_s``);
+* ``flagship_mb_traj_steps_per_s``: ``RunEnsemble`` at 128 and 1024
+  trajectories, five calls each after a warm-up, and beside it
+  ``flagship_traj_steps_per_s``, the harmonic flagship in the same call.
 
 ``--sweep`` adds ``k7_sweep``: K7's predictor device time at each shape
 for every number of trajectories per CTA the kernel is built for; and
@@ -81,7 +95,8 @@ def enqueue_us(fn, reps=200):
     return 1e6 * dt / reps
 
 
-def device_us(fn, reps=50, names=("bath_force", "conv_tails", "noop")):
+def device_us(fn, reps=50,
+              names=("bath_force", "conv_tails", "noop", "ch_force")):
     """Profiler device microseconds per launch, by kernel name: the mean
     over the launches the trace recorded. The profiler sometimes drops
     records; a trace that kept fewer than half of the calls is taken
@@ -203,11 +218,53 @@ def segment_times(r, ntraj, nsteps):
     return out[1:]
 
 
+def ensemble_rates(r, nsteps, sizes=(128, 1024), reps=5) -> dict:
+    """Trajectory-steps/s of ``RunEnsemble(block=None)`` on the runner
+    ``r``: ``reps`` calls per size after a warm-up."""
+    out = {}
+    for n in sizes:
+        r.RunEnsemble(n, block=None)                  # warm-up
+        out[n] = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.RunEnsemble(n, block=None)
+            torch.cuda.synchronize()
+            out[n].append(n * nsteps / (time.perf_counter() - t0))
+    return out
+
+
+def many_body(dev, res):
+    """The ``flagship_mb`` workload: K5's times and the many-body
+    flagship's segment and ensemble rates, into ``res``."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.tools import flagship as F
+
+    fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp(),
+                           many_body=True)
+    drv = fr.pforce
+    gen = torch.Generator(device=dev).manual_seed(21)
+    chunk = max(F.chunk_sizes(fr._build_system(), 1024))
+    res["k5"] = {"work": K5.work_counts(drv.kernel.cuda.pack),
+                 "plan": drv.kernel.cuda.plan}
+    for n in sorted({128, chunk}):
+        q = 0.3 * torch.randn((n, fr.nph), device=dev, generator=gen)
+        res["k5"][n] = times(lambda: drv.force_torch(q))
+        res["k5"][n]["twin_us"] = event_us(lambda: drv.kernel.plain(q), 10)
+    res["flagship_mb_segment"] = {n: segment_times(fr, n, F.NMD)
+                                  for n in (128, 1024)}
+    res["flagship_mb_traj_steps_per_s"] = ensemble_rates(fr, F.NMD)
+    res["flagship_traj_steps_per_s"] = ensemble_rates(
+        F.flagship_runner(torch.float32, dev, tempfile.mkdtemp()), F.NMD)
+
+
 def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("plain_bench: needs a CUDA device")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--workload", default="plain",
+                    choices=["plain", "flagship_mb"])
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--no-e2e", action="store_true",
                     help="kernel times only")
@@ -224,7 +281,12 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    res = {"label": args.label, "device": smi, "k7": {}, "k6": {}}
+    res = {"label": args.label, "device": smi}
+    if args.workload == "flagship_mb":
+        many_body(dev, res)
+        print(json.dumps(res), flush=True)
+        return
+    res.update(k7={}, k6={})
     gen = torch.Generator(device=dev).manual_seed(5)
 
     lib = build.load()
@@ -279,17 +341,7 @@ def main(argv=None):
             res["run_steps_per_s"].append(
                 2 * NMD / (time.perf_counter() - t0))
 
-        res["flagship_traj_steps_per_s"] = {}
-        for n in (128, 1024):
-            fr.RunEnsemble(n, block=None)                  # warm-up
-            res["flagship_traj_steps_per_s"][n] = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fr.RunEnsemble(n, block=None)
-                torch.cuda.synchronize()
-                res["flagship_traj_steps_per_s"][n].append(
-                    n * F.NMD / (time.perf_counter() - t0))
+        res["flagship_traj_steps_per_s"] = ensemble_rates(fr, F.NMD)
     print(json.dumps(res), flush=True)
 
 

@@ -1,11 +1,13 @@
 """Where the time of a run goes on the card.
 
     python -m sclmd_tpu_torch.tools.profile_e2e --out DIR \\
-        [--workload primary|flagship|run] [--ntraj 256 1024]
+        [--workload primary|flagship|flagship_mb|run] [--ntraj 256 1024]
 
 Workloads: ``primary``, ``RunEnsemble`` on the primary junction with
 the blocked integrator (K1, K2); ``flagship``, ``RunEnsemble`` on the
-harmonic flagship with the plain step (K7); ``run``, ``md.Run`` of one
+harmonic flagship with the plain step (K7); ``flagship_mb``, the same
+on the many-body flagship (the C/H force driver: K5 twice a step, K7
+three times); ``run``, ``md.Run`` of one
 2048-step run in two segments on the primary junction with the plain
 step (K6, K7; ``--ntraj`` is ignored).
 
@@ -13,7 +15,7 @@ Needs a CUDA card. For each trajectory count: one warm-up call, one
 untraced call timed on the host clock (``torch.cuda.synchronize`` inside
 the window), then one call under ``torch.profiler`` with a span around
 each layer (draws, noise synthesis, thermal init, the integrators, the
-potential force, K1 with its near- and far-tap launches, K2, K6, K7, the
+potential force, K1 with its near- and far-tap launches, K2, K5, K6, K7, the
 output files). From the trace it
 reports:
 
@@ -55,6 +57,8 @@ SPANS = {
     "K1_near": ("sclmd_tpu_torch.kernels.gle_block", "gle_near_cuda"),
     "K1_far": ("sclmd_tpu_torch.kernels.gle_block", "gle_far_cuda"),
     "K2_block_corr": ("sclmd_tpu_torch.kernels.block_corr", "block_corr"),
+    "K5_ch_force": ("sclmd_tpu_torch.kernels.ch_force:CHForceCuda",
+                    "__call__"),
     "K6_conv_tails": ("sclmd_tpu_torch.kernels.conv_tails:ConvTailsCuda",
                       "__call__"),
     "K7_bath_force": ("sclmd_tpu_torch.kernels.bath_force:BathForce",
@@ -131,9 +135,10 @@ def summarise(trace_path, wall_traced):
 
 def workload(name: str, dev):
     """(call(ntraj), trajectory-steps of one call(ntraj)) of a workload."""
-    if name == "flagship":
+    if name in ("flagship", "flagship_mb"):
         from sclmd_tpu_torch.tools import flagship as F
-        r = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp())
+        r = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp(),
+                              many_body=name == "flagship_mb")
         return (lambda n: r.RunEnsemble(n, nsteps=F.NMD, block=None),
                 lambda n: n * F.NMD)
     from sclmd_tpu_torch.tools.primary import BLOCK, NMD, primary_runner
@@ -156,7 +161,7 @@ def workload(name: str, dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="primary",
-                    choices=["primary", "flagship", "run"])
+                    choices=["primary", "flagship", "flagship_mb", "run"])
     ap.add_argument("--ntraj", type=int, nargs="+", default=[256, 1024])
     ap.add_argument("--out", required=True,
                     help="directory for the traces and the summary")

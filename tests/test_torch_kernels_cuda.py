@@ -453,3 +453,172 @@ def test_run_segment_card_matches_cpu(cuda, ntraj):
         assert _rel(a, b) < 1e-4
     for k in yc:
         assert _rel(yg[k], yc[k]) < 1e-4, k
+
+
+# --- K5: the many-body C/H force ---------------------------------------------
+# The yardstick is the autograd twin in float64 on the CPU; the float32
+# twin itself is off by ~1e-5 (conv-scaled units) on a 50-angstrom junction,
+# from the rounding of the coordinates, which the kernel does not share (it
+# works on reference difference vectors). Errors are relative to the largest
+# force of the batch, at displacements of thermal size.
+def _k5_structures():
+    import os
+    from sclmd_tpu_torch.models.hydrocarbon import terminate_with_h
+    from sclmd_tpu_torch.models.tersoff import graphene_ribbon
+    npz = np.load(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "flagship_negf.npz"))
+    return {
+        "ribbon": lambda: terminate_with_h(
+            [["C", *row] for row in graphene_ribbon(4, 3)]),
+        "flagship": lambda: [[str(e)] + list(map(float, p))
+                             for e, p in zip(npz["els"], npz["pos"])],
+        # an isolated C-C bond: zeta = 0 on both of its table entries
+        "dimer": lambda: [["C", 0.0, 0.0, 0.0], ["C", 1.45, 0.0, 0.0],
+                          ["H", -0.6, 0.9, 0.0]],
+    }
+
+
+def _k5_pair(name, cuda, **kw):
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver
+    axyz = _k5_structures()[name]()
+    return (CHDriver(axyz, dtype=torch.float32, device=cuda, **kw),
+            CHDriver(axyz, dtype=torch.float64, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("ntraj", [1, 37, 130])
+@pytest.mark.parametrize("name", ["ribbon", "flagship", "dimer"])
+def test_ch_force_matches_float64_twin(cuda, name, ntraj):
+    """One trajectory, a ragged batch, more CTAs than one wave of a small
+    card; energy on request; one launch per evaluation; bitwise repeats."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    drv, ref = _k5_pair(name, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(ntraj)
+    q = 0.6 * torch.randn((ntraj, 3 * drv.number), device=cuda,
+                          generator=gen)
+    before = K5.launches
+    e, f = drv.energy_force_torch(q)
+    f2 = drv.force_torch(q)
+    torch.cuda.synchronize()
+    assert K5.launches == before + 2
+    assert torch.equal(f, f2)
+    ew, fw = ref.energy_force_torch(q.double().cpu())
+    assert _rel(f, fw) < 1e-4
+    assert _rel(e, ew) < 1e-5
+    # the float32 twin on the card: the same function, its own rounding
+    assert _rel(drv.kernel.plain(q), fw) < 2e-3
+    # a single (nph,) vector goes through as a batch of one
+    assert torch.equal(drv.force_torch(q[0]), f[0])
+
+
+def test_ch_force_is_zero_at_rest_and_f0_is_the_kernels(cuda):
+    drv, ref = _k5_pair("flagship", cuda)
+    z = torch.zeros((3, 603), device=cuda)
+    assert not drv.force_torch(z).any()
+    assert drv.f0 is drv.kernel.cuda.f0
+    assert _rel(drv.f0, ref.f0) < 1e-4
+    assert _rel(drv.absforce(np.zeros(603)), ref.f0) < 1e-4
+
+
+def test_ch_force_through_collinearity_and_cutoff(cuda):
+    """Atoms pulled through the cutoff's switching zone (carbons moved by
+    ~0.3 angstrom) against the float64 twin; and a wag term whose adjacent
+    bonds are exactly collinear, against the kernel's formulas in numpy:
+    finite, and the term gives exactly nothing."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.models.hydrocarbon import ch_energy
+    drv, ref = _k5_pair("ribbon", cuda)
+    rng = np.random.default_rng(2)
+    q = 15.0 * rng.standard_normal((64, 3 * drv.number))
+    f = drv.force_torch(torch.as_tensor(q, dtype=torch.float32, device=cuda))
+    fw = ref.force_torch(torch.as_tensor(q))
+    assert torch.isfinite(f).all()
+    assert _rel(f, fw) < 1e-4
+
+    axyz = [["C", 0.0, 0.0, 0.0], ["C", 1.4, 0.0, 0.0],
+            ["C", -1.4, 0.0, 0.0], ["H", 0.0, 1.09, 0.0]]
+    xyz = np.array([a[1:] for a in axyz], float).ravel()
+    terms = ch_energy(axyz)[0].terms
+    qc = np.zeros((2, 12))
+    qc[:, 11] = 0.3                       # the H out of the plane
+    qc[1, 4] = 0.2                        # second row: off collinearity
+    got = []
+    for oop in (np.array([[3, 0, 1, 2]]), np.zeros((0, 4), int)):
+        pack = K5.pack_operands(dict(terms, oop=oop), xyz, np.ones(12))
+        kern = K5.CHForceCuda(pack, cuda)
+        f = kern(torch.as_tensor(qc, dtype=torch.float32, device=cuda))
+        _, fn = K5.analytic_force_numpy(pack, qc, kern.f0.cpu().numpy())
+        assert torch.isfinite(f).all()
+        assert _rel(f, torch.as_tensor(fn)) < 1e-4
+        got.append(f)
+    assert torch.equal(got[0][0], got[1][0])
+    assert not torch.equal(got[0][1], got[1][1])
+
+
+def test_ch_force_lam3_branch(cuda):
+    from sclmd_tpu_torch.models.tersoff import TERSOFF_PARAMS
+    table = {"C": dict(TERSOFF_PARAMS["C"], lam3=0.6)}
+    drv, ref = _k5_pair("ribbon", cuda, tersoff_params=table)
+    q = torch.as_tensor(0.6 * np.random.default_rng(3).standard_normal(
+        (5, 3 * drv.number)))
+    assert _rel(drv.force_torch(q.float().to(cuda)),
+                ref.force_torch(q)) < 1e-4
+
+
+def test_ch_force_refuses_what_the_kernel_does_not_take(cuda):
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver, terminate_with_h
+    from sclmd_tpu_torch.models.tersoff import graphene_ribbon
+    drv, _ = _k5_pair("ribbon", cuda)
+    n = 3 * drv.number
+    with pytest.raises(TypeError):
+        drv.force_torch(torch.zeros((2, n), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        drv.force_torch(torch.zeros((2, n + 3), device=cuda))
+    x0 = graphene_ribbon(3, 3)
+    cell = np.array([x0[:, 0].max() + 1.42, 40.0, 20.0])
+    axyz = terminate_with_h([["C", *row] for row in x0], cell=cell)
+    per = CHDriver(axyz, cell=cell, dtype=torch.float32, device=cuda)
+    with pytest.raises(NotImplementedError, match="periodic"):
+        per.force_torch(torch.zeros((2, 3 * len(axyz)), device=cuda))
+    f64 = CHDriver(_k5_structures()["ribbon"](), device=cuda)
+    with pytest.raises(TypeError):
+        f64.force_torch(torch.zeros((2, n), dtype=torch.float64,
+                                    device=cuda))
+
+
+def test_run_segment_with_ch_driver_card_against_cpu(cuda):
+    """64 plain steps of the many-body ribbon with two electron baths on
+    the card (K5 twice a step, K7 three times) against float64 on the
+    CPU."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver
+    axyz = _k5_structures()["ribbon"]()
+    nph, nmd, ntraj, nsteps = 3 * len(axyz), 64, 5, 64
+    rng = np.random.default_rng(4)
+    noises = [0.02 * rng.standard_normal((ntraj, nmd, 6)) for _ in range(2)]
+    p0 = 0.05 * rng.standard_normal((ntraj, nph))
+    out = []
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        drv = CHDriver(axyz, dtype=dtype, device=dev)
+        baths = tuple(
+            TB.ebath(cats, tb, 0.4, nmd, wmax=1.0, efric=np.eye(6) / 80.0,
+                     dtype=dtype, device=dev, factorize=False).replace(
+                noise=torch.as_tensor(nz, dtype=dtype, device=dev))
+            for (cats, tb), nz in zip(((range(6), 330.0),
+                                       (range(nph - 6, nph), 270.0)), noises))
+        mask = torch.ones(nph, dtype=dtype, device=dev)
+        mask[[9, 10, 11]] = 0.0
+        system = TMD.GLESystem(dyn=None, baths=baths, mask=mask, dt=0.4,
+                               nph=nph, ml=1, nmd=nmd,
+                               force_fn=drv.force_torch)
+        st = TMD.initial_state(system, ntraj).replace(
+            p=torch.as_tensor(p0, dtype=dtype, device=dev) * mask)
+        k5, k7 = K5.launches, K7.launches
+        fin, ys = TMD.run_segment(system, st, nsteps)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert K5.launches == k5 + 2 * nsteps
+            assert K7.launches == k7 + 3 * nsteps
+        out.append((fin.p, fin.q, ys["cur"], ys["etot"]))
+    for a, b in zip(*out):
+        assert _rel(a, b) < 1e-4

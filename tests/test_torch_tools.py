@@ -54,7 +54,7 @@ def test_summarise_synthetic_trace(tmp_path):
 def test_profile_spans_cover_run_ensemble(tmp_path):
     """Every span of the profile wraps a function that the profiled
     workloads (blocked and plain RunEnsemble, md.Run) really call, and
-    the wrappers come off again. The K6/K7 spans wrap the launches,
+    the wrappers come off again. The K5/K6/K7 spans wrap the launches,
     which happen only on the card, and so do K1's near- and far-tap
     launches."""
     nmd, dt, nat = 32, 0.4, 4
@@ -86,7 +86,8 @@ def test_profile_spans_cover_run_ensemble(tmp_path):
     prof.export_chrome_trace(path)
     spans = PE.summarise(path, 1.0)["spans"]
     assert set(spans) == set(PE.SPANS)
-    card_only = {"K6_conv_tails", "K7_bath_force", "K1_near", "K1_far"}
+    card_only = {"K5_ch_force", "K6_conv_tails", "K7_bath_force", "K1_near",
+                 "K1_far"}
     assert [k for k, v in spans.items()
             if k not in card_only and not v["calls"]] == []
     assert spans["K1_gle_block"]["calls"] == 2
