@@ -50,7 +50,10 @@ not 0 and no result line is printed):
 12. K5 ``ch_force`` at each chunk size of phase 13, at thermal
    displacements: against its autograd twin in float64 on the CPU, and
    against the same twin in float32 on the card; repeated calls agree
-   bitwise;
+   bitwise; then a periodic C/H sheet (``graphene_ribbon(3, 3)`` with its
+   cell) and a ribbon whose carbon table is 20 wide (skin 2.5 angstrom),
+   each at 128 trajectories against its float64 twin, bitwise repeats,
+   exactly zero at rest;
 13. ``RunEnsemble`` on the many-body flagship (the C/H force driver
    through ``AddPotential``: K5 twice a step, K7 three times) at 128 and
    1024 trajectories, nsteps 1024, after a warm-up of each, with both
@@ -58,7 +61,15 @@ not 0 and no result line is printed):
    and the heat currents' sign from a runner with swapped temperatures on
    the same draws;
 14. 48 many-body steps of a 4-trajectory flagship chunk, injected draws,
-   on the card (K5, K7) and on the CPU (twins, float64).
+   on the card (K5, K7) and on the CPU (twins, float64);
+15. K8, the Tersoff-only entry of the same kernel, on its runner path:
+   the periodic 192-atom graphene sheet (``tools.sheet``: a single-element
+   ``TersoffDriver`` in float32 with its lattice cell, through
+   ``AddPotential``) against its float64 twin at 128 trajectories of
+   thermal displacements (bitwise repeat, zero at rest) with its kernel,
+   twin and bound times; ``RunEnsemble(128)`` with the launch counter
+   read around it; 48 steps of a 4-trajectory chunk on the card and in
+   float64 on the CPU, injected draws.
 
 The workloads are the primary junction of bench.py
 (``sclmd_tpu_torch.tools.primary``: a 100-atom harmonic chain, nph 300,
@@ -66,7 +77,8 @@ two non-local phonon baths of 90 DOFs with 1000 memory taps, nmd 2048,
 dt 0.25/0.658, T 300 K +- 5 %) and its harmonic flagship
 (``sclmd_tpu_torch.tools.flagship``: the 201-atom C/H junction, nph 603,
 two electron baths of 150 DOFs, 120 DOFs fixed, nmd 1024; many-body:
-the same junction with ``CHDriver`` forces on the npz geometry). The line
+the same junction with ``CHDriver`` forces on the npz geometry), and the
+periodic graphene sheet of ``sclmd_tpu_torch.tools.sheet``. The line
 before the last is the card's name and power limit; the last line is
 the result JSON; the line before it lists every kernel with its
 launches on the main path, error against its twin, time, twin time,
@@ -173,7 +185,9 @@ def main():
     build.load()
     build_s = time.perf_counter() - t0
     with open(lib_path[:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        ptxas = [ln.strip() for ln in f
+                 if any(w in ln for w in ("entry function", "registers",
+                                          "spill"))]
     print(json.dumps({"phase": 2, "build_s": build_s,
                       "nvcc_s": build.build_seconds, "ptxas": ptxas}),
           flush=True)
@@ -292,9 +306,12 @@ def main():
     phase_card_vs_cpu(dev)
 
     # 12. K5 against its twins, 13. the many-body flagship, 14. card vs CPU
-    k5_abs = check_k5(k5_ops)
+    k5_abs = max(check_k5(k5_ops), check_k5_geometries(dev))
     mb_launches = phase_many_body(dev)
     phase_many_body_card_vs_cpu(dev)
+
+    # 15. K8 on the periodic sheet
+    k8 = phase_tersoff_sheet(dev)
 
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
@@ -332,6 +349,9 @@ def main():
         row("ch_force", "sclmd_tpu_torch/csrc/ch_force.cu",
             "sclmd_tpu/models/tersoff.py:186", mb_launches["ch_force"],
             k5_abs, k5_t),
+        row("tersoff_force", "sclmd_tpu_torch/csrc/ch_force.cu",
+            "sclmd_tpu/models/tersoff.py:160", k8["launches"], k8["abs"],
+            k8["times"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -788,7 +808,7 @@ def k5_operands(dev):
 
 
 def k5_times(drv, q):
-    """K5 at one chunk size: kernel (CUDA events and the profiler's
+    """K5 (or K8) at one chunk size: kernel (CUDA events and the profiler's
     device duration, as for K7), its float32 autograd twin on the card
     (no single library call computes it), and the bound: q read and f
     written once, and the operations this geometry needs
@@ -922,6 +942,142 @@ def phase_many_body_card_vs_cpu(dev, nsteps=48):
                       "rel_err": dict(zip(("p", "q", "cur_sum"), errs)),
                       "rtol": RTOL}), flush=True)
     assert max(errs) <= RTOL, errs
+
+
+def _against_float64(drv, ref, q, phase, name):
+    """A K5/K8 driver on the card against its float64 twin on the CPU at
+    q: force and energy within RTOL of the largest, a bitwise repeat, and
+    exactly zero at rest. Returns the largest absolute error."""
+    e, f = drv.energy_force_torch(q)
+    again = drv.force_torch(q)
+    rest = drv.force_torch(torch.zeros_like(q))
+    torch.cuda.synchronize()
+    qc = q.double().cpu()
+    pairs = [ref.energy_force_torch(qc[i:i + 64])
+             for i in range(0, q.shape[0], 64)]
+    e64 = torch.cat([p_[0] for p_ in pairs])
+    f64 = torch.cat([p_[1] for p_ in pairs])
+    rel, err = rel_err(f, f64)
+    e_rel = rel_err(e, e64)[0]
+    print(json.dumps({
+        "phase": phase, "case": name, "ntraj": q.shape[0],
+        "rel_err_float64_twin": rel, "max_abs_err": err,
+        "energy_rel_err": e_rel, "rtol": RTOL,
+        "largest_force": float(f64.abs().max()),
+        "bitwise_repeat": bool(torch.equal(f, again)),
+        "zero_at_rest": not bool(rest.any())}), flush=True)
+    assert rel <= RTOL and e_rel <= RTOL, \
+        f"{name}: the kernel disagrees with its float64 twin: {rel}, {e_rel}"
+    assert torch.equal(f, again), f"{name}: no bitwise repeat"
+    assert not rest.any(), f"{name}: force at rest is not zero"
+    return err
+
+
+def _thermal_q(drv, ntraj, dev, seed, amp=0.05):
+    """Displacements of ``amp`` angstrom rms per coordinate, in q."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    conv = torch.as_tensor(drv.conv, dtype=torch.float32, device=dev)
+    return amp * torch.randn((ntraj, 3 * drv.number), device=dev,
+                             generator=gen) / conv
+
+
+def check_k5_geometries(dev, ntraj=128):
+    """Phase 12, the cases the redesign opened: a periodic cell, a table
+    wider than 16, and the reference's large ribbon of 1,270 atoms, whose
+    constants and working regions the kernel keeps in global memory."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver, terminate_with_h
+    from sclmd_tpu_torch.models.tersoff import graphene_ribbon
+    x0 = graphene_ribbon(3, 3)
+    cell = np.array([x0[:, 0].max() + 1.42, 40.0, 20.0])
+    ribbon = terminate_with_h([["C", *row] for row in graphene_ribbon(4, 3)])
+    cases = {   # name: (atoms, driver options, trajectories, placement)
+        "periodic_cell": (terminate_with_h([["C", *row] for row in x0],
+                                           cell=cell), dict(cell=cell),
+                          ntraj, "shared"),
+        "wide_rows": (ribbon, dict(cutoff_skin=2.5), ntraj, "shared"),
+        "large_ribbon": (terminate_with_h(
+            [["C", *row] for row in graphene_ribbon(90, 6)]), {}, 32,
+            "global"),
+    }
+    worst = 0.0
+    for i, (name, (axyz, kw, n, place)) in enumerate(cases.items()):
+        drv = CHDriver(axyz, dtype=torch.float32, device=dev, **kw)
+        ref = CHDriver(axyz, dtype=torch.float64, device="cpu", **kw)
+        width = drv.energy_fn.terms["nbr_c"].shape[1]
+        assert drv.kernel.cuda is not None, name
+        assert name != "wide_rows" or width > 16, width
+        plan = drv.kernel.cuda.plan(n)
+        assert plan["place"] == place, (name, plan["place"])
+        before = K5.launches
+        q = _thermal_q(drv, n, dev, 40 + i)
+        worst = max(worst, _against_float64(drv, ref, q, 12, name))
+        assert K5.launches == before + 3, (name, K5.launches - before)
+        w = K5.work_counts(drv.kernel.cuda.pack)
+        print(json.dumps({"phase": 12, "case": name, "atoms": len(axyz),
+                          "place": place, "ntraj": n,
+                          "ms": cuda_ms(lambda: drv.force_torch(q), 20),
+                          "bound_ms": bound_ms(n * w["ops"], n * w["bytes"]),
+                          "work": w}),
+              flush=True)
+    return worst
+
+
+def phase_tersoff_sheet(dev, nsteps=48):
+    """Phase 15: K8 on the periodic sheet: against its float64 twin, its
+    times, RunEnsemble(128) with the launch counter read around it, and
+    48 steps on the card against float64 on the CPU."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
+    from sclmd_tpu_torch.tools import sheet as S
+    from sclmd_tpu_torch.tools.flagship import chunk_sizes
+
+    ntraj = 128
+    r = S.sheet_runner(torch.float32, dev, tempfile.mkdtemp())
+    drv = r.pforce
+    assert drv.kernel.cuda.pack["kind"] == "tersoff"
+    ref = S.sheet_runner(torch.float64, "cpu", tempfile.mkdtemp()).pforce
+    q = _thermal_q(drv, ntraj, dev, 15)
+    err = _against_float64(drv, ref, q, 15, "tersoff_sheet")
+
+    t = k5_times(drv, q)
+
+    r.RunEnsemble(ntraj, nsteps=S.NMD)            # warm-up
+    torch.cuda.synchronize()
+    K5.reset_count()
+    t0 = time.perf_counter()
+    means = r.RunEnsemble(ntraj, nsteps=S.NMD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K5.launches_tersoff
+    ke = r.energy(r.state)
+    assert means.shape == (ntraj, 2) and np.isfinite(means).all()
+    assert np.isfinite(ke) and 0.0 < ke < KE_BOUND, ke
+    # (the sheet's nmd is the flagship's, so are its chunks' rules)
+    assert launches == 2 * S.NMD * len(chunk_sizes(r._build_system(), ntraj)) \
+        and K5.launches == 0, launches
+
+    rng = np.random.default_rng(15)
+    rs = [rng.standard_normal((4,) + np.shape(b.nstd)) for b in r.baths]
+    out = []
+    for dtype, device in ((torch.float32, dev), (torch.float64, "cpu")):
+        rr = S.sheet_runner(dtype, device, tempfile.mkdtemp())
+        fin, sums, ok = fused_chunk(
+            rr._build_system(), bath_factors(rr.baths, device),
+            [torch.as_tensor(x, dtype=dtype, device=device) for x in rs],
+            None, rr.hw, rr.U, S.T, nsteps, 0, None, nsteps // 4)
+        assert bool(ok)
+        out.append((fin.p, fin.q, sums))
+    errs = [rel_err(a, b)[0] for a, b in zip(*out)]
+    print(json.dumps({
+        "phase": 15, "launches": {"tersoff_force": launches},
+        "e2e": {ntraj: {"s": wall, "traj_steps_per_s": ntraj * S.NMD / wall,
+                        "kinetic_energy_end": ke}},
+        "ms": t, "nsteps": nsteps,
+        "rel_err": dict(zip(("p", "q", "cur_sum"), errs)), "rtol": RTOL}),
+        flush=True)
+    assert max(errs) <= RTOL, errs
+    return {"launches": launches, "abs": err, "times": t}
 
 
 if __name__ == "__main__":

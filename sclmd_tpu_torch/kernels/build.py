@@ -122,8 +122,10 @@ def load() -> ctypes.CDLL:
     lib.ch_force_f32.restype = ci
     lib.ch_force_max_threads.argtypes = []
     lib.ch_force_max_threads.restype = ci
-    lib.ch_force_max_nn.argtypes = []
-    lib.ch_force_max_nn.restype = ci
+    lib.ch_force_max_groups.argtypes = []
+    lib.ch_force_max_groups.restype = ci
+    lib.ch_force_trace_len.argtypes = []
+    lib.ch_force_trace_len.restype = ci
     _lib = lib
     return lib
 

@@ -288,7 +288,7 @@ def _check_blocked(system: GLESystem, ntraj: int):
             raise NotImplementedError(
                 "run_segment_blocked: only non-local phonon baths (ml > 1) "
                 "are ported to K1; electron and local baths take the plain "
-                "step, run_segment (ROADMAP queue 1 item 4)")
+                "step, run_segment (ROADMAP queue 1 item 9)")
     _check_noise(system, ntraj, "run_segment_blocked")
 
 
@@ -786,7 +786,8 @@ class md:
     def RunEnsemble(self, ntraj: int, nsteps: Optional[int] = None,
                     equil_frac: float = 0.25, block: Optional[int] = None,
                     npie: Optional[int] = None, checkpoint: bool = False,
-                    chunk: Optional[int] = None):
+                    chunk: Optional[int] = None,
+                    steady_init: bool = False):
         """Run ``ntraj`` independent trajectories; returns the
         per-trajectory mean bath currents (ntraj, nbaths) after skipping
         the first ``equil_frac`` of the steps, and writes the
@@ -799,16 +800,27 @@ class md:
         memory) run one after another, each synthesising only its own
         noise. Every draw comes from a generator keyed by (seed, stream,
         trajectory index), so the draws do not depend on the chunking.
+
+        The signature is the reference's. As there, ``npie`` must divide
+        ``nsteps`` (ValueError); ``npie > 1``, ``checkpoint=True`` and
+        ``steady_init=True`` are not ported yet and raise.
         """
         from sclmd_tpu_torch.parallel.ensemble import (
             auto_chunk, bath_factors, draw_chunk, fused_chunk)
 
         nsteps = nsteps or self.nmd
         npie = npie or 1
+        if nsteps % npie:
+            raise ValueError(f"nsteps={nsteps} not divisible by "
+                             f"npie={npie}")
         if checkpoint or npie != 1:
             raise NotImplementedError(
                 "RunEnsemble: the checkpointed and segmented (npie > 1) "
-                "branches are not ported yet (ROADMAP queue 1 item 5)")
+                "branches are not ported yet (ROADMAP queue 1 item 4)")
+        if steady_init:
+            raise NotImplementedError(
+                "RunEnsemble: steady_init (the steady-state mode "
+                "temperatures) is not ported yet (ROADMAP queue 1 item 4)")
         system = self._build_system()
         block = block if block is not None else self.block
         if not (block and nsteps % block == 0 and blocked_supports(system)):

@@ -166,7 +166,11 @@ class TorchDriver:
 class DriverShell:
     """Delegation base of the specialised drivers (pair, Tersoff, C/H):
     a subclass builds its energy function and calls ``_attach``; the
-    protocol then forwards to the wrapped ``TorchDriver``."""
+    protocol then forwards to the wrapped ``TorchDriver``. A subclass
+    with a force kernel (``kernels.ch_force.CHForce``) hands it to
+    ``_use_kernel``: the forces then go through it."""
+
+    kernel = None
 
     def _attach(self, energy_fn, axyz, dtype, device=None,
                 md2ang=U.MD2ANG):
@@ -177,20 +181,40 @@ class DriverShell:
                      "device"):
             setattr(self, attr, getattr(self._drv, attr))
 
+    def _use_kernel(self, kernel):
+        """Route the forces through ``kernel``, whose f0 (the kernel's own
+        force at q = 0, where it is built) becomes the driver's."""
+        self.kernel = kernel
+        if kernel.cuda is not None:
+            self.f0 = kernel.cuda.f0
+
     def force(self, q):
-        return self._drv.force(q)
+        if self.kernel is None:
+            return self._drv.force(q)
+        return self.force_torch(self._drv._tensor(q))
 
     def newx(self, q):
         return self._drv.newx(q)
 
     def force_torch(self, q):
-        return self._drv.force_torch(q)
+        if self.kernel is None:
+            return self._drv.force_torch(q)
+        return self.kernel(q)
 
     def energy_torch(self, q):
         return self._drv.energy_torch(q)
 
+    def energy_force_torch(self, q):
+        """(energy per trajectory, force) in one evaluation."""
+        if self.kernel is None:
+            return (self._drv.energy_torch(q).detach(),
+                    self._drv.force_torch(q))
+        return self.kernel(q, energy=True)
+
     def absforce(self, q):
-        return self._drv.absforce(q)
+        if self.kernel is None:
+            return self._drv.absforce(q)
+        return self.force(q) + self.f0
 
     def initforce(self):
         self._drv.initforce()

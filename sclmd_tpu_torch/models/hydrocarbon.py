@@ -206,9 +206,13 @@ def terminate_with_h(axyz, cell=None, bond: float = CH_MORSE["r0"],
 class CHDriver(DriverShell):
     """Force driver for hydrogen-terminated carbon junctions.
 
-    ``force_torch`` on CUDA tensors launches kernel K5 (float32, no
-    periodic cell: it raises otherwise), whose f0 is the kernel's own
-    force at q = 0; on CPU tensors it is the autograd twin."""
+    ``force_torch`` on CUDA tensors launches kernel K5 (float32, with or
+    without a periodic cell, any width of the carbon table, up to 65535
+    atoms: the kernel keeps its constants and working memory in shared
+    memory up to about 450 atoms of a ribbon and reads them from global
+    memory beyond), whose f0 is the kernel's own force at q = 0; on CPU
+    tensors it is the autograd twin. A float64 many-body run is CPU-only:
+    a float64 CUDA tensor raises."""
 
     def __init__(self, axyz, cell=None, max_nnei=None, cutoff_skin=0.4,
                  dtype=torch.float64, morse=None, k_bend=CH_BEND_K,
@@ -220,19 +224,4 @@ class CHDriver(DriverShell):
                                tersoff_params=tersoff_params)
         self.ch_bonds = bonds
         self._attach(efn, axyz, dtype, device)
-        self.kernel = CHForce(efn.terms, self._drv)
-        if self.kernel.cuda is not None:
-            self.f0 = self.kernel.cuda.f0
-
-    def force_torch(self, q):
-        return self.kernel(q)
-
-    def force(self, q):
-        return self.force_torch(self._drv._tensor(q))
-
-    def absforce(self, q):
-        return self.force(q) + self.f0
-
-    def energy_force_torch(self, q):
-        """(energy per trajectory, force) in one evaluation."""
-        return self.kernel(q, energy=True)
+        self._use_kernel(CHForce(efn.terms, self._drv))

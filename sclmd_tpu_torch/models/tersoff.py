@@ -11,8 +11,9 @@ Functional form (J. Tersoff, PRB 39, 5566 (1989)):
 
 All tensors have a fixed shape (a padded static neighbour table), and the
 positions carry leading batch axes: ``energy(x)`` takes (..., na, 3) in
-angstrom and returns eV per leading index. The force of the C/H junction
-on the card is kernel K5 (``kernels.ch_force``), whose plain twin is the
+angstrom and returns eV per leading index. On the card the force of the
+C/H junction is kernel K5 and that of a single-element Tersoff system in
+float32 kernel K8 (both ``kernels.ch_force``), whose plain twin is the
 autograd of these functions.
 """
 
@@ -176,6 +177,8 @@ def tersoff_energy_multi(elements, neighbors, nmask,
         return 0.5 * torch.where(mask_t, e_pair,
                                  torch.zeros_like(e_pair)).sum((-2, -1))
 
+    energy.terms = dict(elements=els, params=table, nbr=arrays["nbr"],
+                        mask=arrays["mask"], cell=arrays.get("cell"))
     return energy
 
 
@@ -223,7 +226,8 @@ def tersoff_energy(element: str, neighbors, nmask,
         return 0.5 * torch.where(mask_t, e_pair,
                                  torch.zeros_like(e_pair)).sum((-2, -1))
 
-    energy.terms = dict(params=p, nbr=arrays["nbr"], mask=arrays["mask"])
+    energy.terms = dict(params=p, nbr=arrays["nbr"], mask=arrays["mask"],
+                        cell=arrays.get("cell"))
     return energy
 
 
@@ -243,9 +247,17 @@ def graphene_ribbon(nx: int, ny: int, a: float = 1.42):
 
 
 class TersoffDriver(DriverShell):
-    """Force driver for a Tersoff system. The force is the autograd of
-    the energy on either device (a Tersoff-only entry of kernel K5 is
-    listed in ROADMAP with the other potentials)."""
+    """Force driver for a Tersoff system.
+
+    A single-element system in float32 takes kernel K8 on the card
+    (``kernels.ch_force`` with a Tersoff-only pack, periodic cell and any
+    table width included, up to 65535 atoms; shared memory holds the
+    kernel's constants up to about 350 carbons and its working memory up
+    to about 700, global memory beyond), whose f0 is the kernel's own
+    force at q = 0,
+    and the autograd twin on CPU tensors. A multi-element system (mixed
+    pair parameters) and float64 keep the autograd of the energy on
+    either device."""
 
     def __init__(self, axyz, cutoff_skin=0.4, max_nnei=None, cell=None,
                  element=None, dtype=torch.float64, params=None,
@@ -279,3 +291,6 @@ class TersoffDriver(DriverShell):
             efn = tersoff_energy_multi(els, nbr, mask, cell=cell,
                                        params=table)
         self._attach(efn, axyz, dtype, device)
+        if len(uniq) == 1 and dtype == torch.float32:
+            from sclmd_tpu_torch.kernels.ch_force import CHForce, pack_tersoff
+            self._use_kernel(CHForce(efn.terms, self._drv, pack=pack_tersoff))

@@ -44,14 +44,21 @@ C/H force driver through ``AddPotential``):
   1024-trajectory run: ``event_us``, ``device_us``, ``enqueue_us`` as
   above, ``twin_us`` (the autograd twin on the card, CUDA events over 10
   calls) and the work of one evaluation (``kernels.ch_force.work_counts``);
+  with the launch plan and the kernel's phase stamps (``phase_cycles``:
+  SM cycles of the staging, phases A, B, C and the gather, medians over
+  the trajectory groups);
 * ``flagship_mb_segment``: 1024 plain steps of ``md.run_segment`` at 128
   and 1024 trajectories (``host_s``, ``wall_s``);
 * ``flagship_mb_traj_steps_per_s``: ``RunEnsemble`` at 128 and 1024
   trajectories, five calls each after a warm-up, and beside it
   ``flagship_traj_steps_per_s``, the harmonic flagship in the same call.
 
-``--sweep`` adds ``k7_sweep``: K7's predictor device time at each shape
-for every number of trajectories per CTA the kernel is built for; and
+``--sweep`` with ``flagship_mb`` adds ``k5_sweep``: K5's device time at
+128 and at the 1024 chunk for each number of threads per trajectory
+group and of groups per CTA that fit (the results agree bitwise). With
+the plain workload it adds ``k7_sweep``: K7's predictor device time at
+each shape for every number of trajectories per CTA the kernel is built
+for; and
 ``k6_keep_sweep``: K6's device time per step at one trajectory for
 several shares of L2 that the kernel slab is asked to stay in (0: every
 tap is asked to leave first; 1: as much of the slab as L2 holds).
@@ -234,7 +241,11 @@ def ensemble_rates(r, nsteps, sizes=(128, 1024), reps=5) -> dict:
     return out
 
 
-def many_body(dev, res):
+K5_SWEEP_THREADS = (128, 256, 384, 512, 768)
+K5_SWEEP_GROUPS = (1, 2, 4, 6, 8)
+
+
+def many_body(dev, res, sweep=False):
     """The ``flagship_mb`` workload: K5's times and the many-body
     flagship's segment and ensemble rates, into ``res``."""
     from sclmd_tpu_torch.kernels import ch_force as K5
@@ -245,12 +256,27 @@ def many_body(dev, res):
     drv = fr.pforce
     gen = torch.Generator(device=dev).manual_seed(21)
     chunk = max(F.chunk_sizes(fr._build_system(), 1024))
-    res["k5"] = {"work": K5.work_counts(drv.kernel.cuda.pack),
-                 "plan": drv.kernel.cuda.plan}
-    for n in sorted({128, chunk}):
-        q = 0.3 * torch.randn((n, fr.nph), device=dev, generator=gen)
+    cuda = drv.kernel.cuda
+    res["k5"] = {"work": K5.work_counts(cuda.pack)}
+    qs = {n: 0.3 * torch.randn((n, fr.nph), device=dev, generator=gen)
+          for n in sorted({128, chunk})}
+    for n, q in qs.items():
         res["k5"][n] = times(lambda: drv.force_torch(q))
         res["k5"][n]["twin_us"] = event_us(lambda: drv.kernel.plain(q), 10)
+        res["k5"][n]["plan"] = cuda.plan(n)
+        res["k5"][n]["phase_cycles"] = cuda.phase_cycles(q)
+    if sweep:
+        res["k5_sweep"] = {}
+        k = K5.CHForceCuda(cuda.pack, dev)
+        for n, q in qs.items():
+            for tt in K5_SWEEP_THREADS:
+                for tpc in K5_SWEEP_GROUPS if n > 128 else (1,):
+                    try:
+                        k._reshape(threads=tt, tpc=tpc).plan(n)
+                    except ValueError:        # does not fit
+                        continue
+                    res["k5_sweep"][f"{n} tt{tt} tpc{tpc}"] = sum(
+                        device_us(lambda: k(q)).values())
     res["flagship_mb_segment"] = {n: segment_times(fr, n, F.NMD)
                                   for n in (128, 1024)}
     res["flagship_mb_traj_steps_per_s"] = ensemble_rates(fr, F.NMD)
@@ -283,7 +309,7 @@ def main(argv=None):
     print(smi, flush=True)
     res = {"label": args.label, "device": smi}
     if args.workload == "flagship_mb":
-        many_body(dev, res)
+        many_body(dev, res, args.sweep)
         print(json.dumps(res), flush=True)
         return
     res.update(k7={}, k6={})

@@ -158,9 +158,24 @@ def test_auto_chunk_budget():
 
 def test_unported_branches_raise(tmp_path):
     r = _torch_runner(tmp_path)
-    for kw in (dict(checkpoint=True), dict(npie=2)):
-        with pytest.raises(NotImplementedError, match="item 5"):
+    for kw in (dict(checkpoint=True), dict(npie=2), dict(steady_init=True)):
+        with pytest.raises(NotImplementedError, match="item 4"):
             r.RunEnsemble(2, **kw)
+
+
+def test_run_ensemble_signature_and_check_order(tmp_path):
+    """The reference's keywords are all accepted, and ``nsteps % npie``
+    raises its ValueError before any not-ported error."""
+    import inspect
+    want = list(inspect.signature(JMD.md.RunEnsemble).parameters)
+    assert list(inspect.signature(TMD.md.RunEnsemble).parameters) == want
+    r = _torch_runner(tmp_path)
+    with pytest.raises(ValueError, match="not divisible"):
+        r.RunEnsemble(2, nsteps=NMD, npie=3, steady_init=True)
+    with pytest.raises(ValueError, match="not divisible"):
+        r.RunEnsemble(2, nsteps=NMD, npie=3, checkpoint=True)
+    means = r.RunEnsemble(2, nsteps=NMD, steady_init=False)
+    assert means.shape == (2, len(r.baths)) and np.isfinite(means).all()
 
 
 @pytest.mark.parametrize("block", [None, 24])

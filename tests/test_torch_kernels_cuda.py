@@ -565,24 +565,190 @@ def test_ch_force_lam3_branch(cuda):
 
 
 def test_ch_force_refuses_what_the_kernel_does_not_take(cuda):
-    from sclmd_tpu_torch.models.hydrocarbon import CHDriver, terminate_with_h
-    from sclmd_tpu_torch.models.tersoff import graphene_ribbon
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver
     drv, _ = _k5_pair("ribbon", cuda)
     n = 3 * drv.number
     with pytest.raises(TypeError):
         drv.force_torch(torch.zeros((2, n), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         drv.force_torch(torch.zeros((2, n + 3), device=cuda))
-    x0 = graphene_ribbon(3, 3)
-    cell = np.array([x0[:, 0].max() + 1.42, 40.0, 20.0])
-    axyz = terminate_with_h([["C", *row] for row in x0], cell=cell)
-    per = CHDriver(axyz, cell=cell, dtype=torch.float32, device=cuda)
-    with pytest.raises(NotImplementedError, match="periodic"):
-        per.force_torch(torch.zeros((2, 3 * len(axyz)), device=cuda))
     f64 = CHDriver(_k5_structures()["ribbon"](), device=cuda)
     with pytest.raises(TypeError):
         f64.force_torch(torch.zeros((2, n), dtype=torch.float64,
                                     device=cuda))
+    # more shared memory than one CTA has, where a launch asks for it:
+    # refused before any launch
+    before = K5.launches
+    kern = K5.CHForceCuda(drv.kernel.cuda.pack, cuda)
+    kern.pack = dict(kern.pack, nslots=60000)
+    with pytest.raises(ValueError, match="shared memory"):
+        kern._reshape(place="shared")(torch.zeros((2, n), device=cuda))
+    assert K5.launches == before + 1      # kern's own f0
+
+
+def _ribbon_cell():
+    from sclmd_tpu_torch.models.hydrocarbon import terminate_with_h
+    from sclmd_tpu_torch.models.tersoff import graphene_ribbon
+    x0 = graphene_ribbon(3, 3)
+    cell = np.array([x0[:, 0].max() + 1.42, 40.0, 20.0])
+    return terminate_with_h([["C", *row] for row in x0], cell=cell), cell
+
+
+def _check_k8_or_k5(drv, ref, cuda, counter, ntraj=37, amp=0.6, seed=0):
+    """Against the float64 twin at displacements of ``amp``: forces,
+    energy, bitwise repeat, exact zero at rest, one launch per call."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = amp * torch.randn((ntraj, 3 * drv.number), device=cuda,
+                          generator=gen)
+    before = getattr(K5, counter)
+    e, f = drv.energy_force_torch(q)
+    f2 = drv.force_torch(q)
+    z = drv.force_torch(torch.zeros_like(q))
+    torch.cuda.synchronize()
+    assert getattr(K5, counter) == before + 3
+    assert torch.equal(f, f2) and not z.any()
+    ew, fw = ref.energy_force_torch(q.double().cpu())
+    assert _rel(f, fw) < 1e-4
+    assert _rel(e, ew) < 1e-5
+    # (a perfect periodic sheet is at rest by symmetry: f0 is ~0 there,
+    # so its error is taken against the largest force)
+    scale = max(float(fw.abs().max()), float(ref.f0.abs().max()))
+    assert float((drv.f0.double().cpu() - ref.f0).abs().max()) < \
+        1e-4 * scale
+
+
+def test_ch_force_periodic_cell(cuda):
+    """CHDriver(cell=...) in float32 launches K5: the sheet closed along
+    x, minimum images of every kind of slot."""
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver
+    axyz, cell = _ribbon_cell()
+    drv = CHDriver(axyz, cell=cell, dtype=torch.float32, device=cuda)
+    ref = CHDriver(axyz, cell=cell, dtype=torch.float64, device="cpu")
+    assert drv.kernel.cuda is not None
+    assert (drv.kernel.cuda.pack["cell"] == cell).all()
+    _check_k8_or_k5(drv, ref, cuda, "launches")
+
+
+def test_ch_force_wide_rows(cuda):
+    """A carbon table 20 wide (skin 2.5 angstrom): most entries sit
+    outside the cutoff and give exact zeros."""
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver
+    axyz = _k5_structures()["ribbon"]()
+    drv = CHDriver(axyz, cutoff_skin=2.5, dtype=torch.float32, device=cuda)
+    ref = CHDriver(axyz, cutoff_skin=2.5, dtype=torch.float64, device="cpu")
+    assert drv.energy_fn.terms["nbr_c"].shape[1] > 16
+    _check_k8_or_k5(drv, ref, cuda, "launches")
+
+
+def test_ch_force_large_ribbon(cuda):
+    """The reference's large C/H datapoint, a ribbon of 1,270 atoms: too
+    large for shared memory, the kernel reads its constants and working
+    regions from global memory; against float64, and a batch of 300
+    (three groups to a CTA) gives the same bits per trajectory."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.models.hydrocarbon import CHDriver, terminate_with_h
+    from sclmd_tpu_torch.models.tersoff import graphene_ribbon
+    axyz = terminate_with_h([["C", *row] for row in graphene_ribbon(90, 6)])
+    drv = CHDriver(axyz, dtype=torch.float32, device=cuda)
+    ref = CHDriver(axyz, dtype=torch.float64, device="cpu")
+    kern = drv.kernel.cuda
+    assert kern.pack["na"] == 1270 and kern.plan(1)["place"] == "global"
+    _check_k8_or_k5(drv, ref, cuda, "launches", ntraj=5)
+    q = 0.6 * torch.randn((300, 3 * 1270), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(5))
+    assert kern.plan(300)["tpc"] == 3
+    assert torch.equal(drv.force_torch(q)[:5], drv.force_torch(q[:5]))
+    # shared memory forced where it does not fit: refused before a launch
+    before = K5.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        K5.CHForceCuda(kern.pack, cuda)._reshape(place="work")(q[:5])
+    assert K5.launches == before + 1      # the new wrapper's f0
+
+
+def test_tersoff_force_large_sheet(cuda):
+    """K8 on a periodic sheet of 400 carbons: the working region in
+    shared memory, the constants read from global memory."""
+    from sclmd_tpu_torch.models.tersoff import TersoffDriver
+    from sclmd_tpu_torch.tools.sheet import sheet
+    axyz, cell = sheet(20, 10)
+    drv = TersoffDriver(axyz, cell=cell, dtype=torch.float32, device=cuda)
+    ref = TersoffDriver(axyz, cell=cell, dtype=torch.float64, device="cpu")
+    assert drv.kernel.cuda.plan(128)["place"] == "work"
+    _check_k8_or_k5(drv, ref, cuda, "launches_tersoff", ntraj=130, amp=0.3)
+
+
+@pytest.mark.parametrize("lam3", [0.0, 0.6])
+def test_tersoff_force_periodic_sheet(cuda, lam3):
+    """K8: a single-element TersoffDriver in float32 on the card, the
+    periodic sheet with its lattice cell, the published set and one with
+    the lam3 exponential on."""
+    from sclmd_tpu_torch.models.tersoff import TERSOFF_PARAMS, TersoffDriver
+    from sclmd_tpu_torch.tools.sheet import sheet
+    axyz, cell = sheet(4, 3)
+    table = {"C": dict(TERSOFF_PARAMS["C"], lam3=lam3)}
+    drv = TersoffDriver(axyz, cell=cell, params=table, dtype=torch.float32,
+                        device=cuda)
+    ref = TersoffDriver(axyz, cell=cell, params=table, dtype=torch.float64,
+                        device="cpu")
+    assert drv.kernel.cuda.pack["kind"] == "tersoff"
+    assert drv.f0 is drv.kernel.cuda.f0
+    _check_k8_or_k5(drv, ref, cuda, "launches_tersoff", amp=0.3)
+
+
+def test_tersoff_float64_and_multi_element_keep_autograd(cuda):
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    from sclmd_tpu_torch.models.tersoff import TersoffDriver
+    from sclmd_tpu_torch.tools.sheet import sheet
+    axyz, cell = sheet(4, 3)
+    before = K5.launches_tersoff
+    for drv in (TersoffDriver(axyz, cell=cell, device=cuda),
+                TersoffDriver([["Si", 0, 0, 0], ["C", 1.85, 0, 0]],
+                              dtype=torch.float32, device=cuda)):
+        assert drv.kernel is None
+        f = drv.force_torch(torch.zeros((2, 3 * drv.number),
+                                        dtype=drv.dtype, device=cuda))
+        assert torch.isfinite(f).all()
+    torch.cuda.synchronize()
+    assert K5.launches_tersoff == before
+
+
+@pytest.mark.parametrize("threads,tpc,place", [
+    (64, 1, "shared"), (128, 3, "shared"), (256, 4, "shared"),
+    (512, 2, "shared"), (256, 4, "work"), (1024, 1, "global"),
+    (256, 4, "global")])
+def test_ch_force_same_bits_at_every_launch_shape(cuda, threads, tpc, place):
+    """Threads per trajectory, trajectories per CTA and where the
+    constants and working regions live change which thread takes an item
+    and which memory it reads, never an item's arithmetic or a sum's
+    order: the force is the same to the bit (a ragged last CTA
+    included), and exactly zero at rest against the default shape's
+    f0."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    drv, _ = _k5_pair("flagship", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = 0.6 * torch.randn((301, 603), device=cuda, generator=gen)
+    other = K5.CHForceCuda(drv.kernel.cuda.pack, cuda)._reshape(
+        threads=threads, tpc=tpc, place=place)
+    assert other.plan(301)["place"] == place
+    assert torch.equal(other(q), drv.force_torch(q))
+    assert not other(torch.zeros_like(q)).any()
+
+
+def test_ch_force_phase_stamps(cuda):
+    """The traced launch: one launch, the same force, a positive cycle
+    count for every phase."""
+    from sclmd_tpu_torch.kernels import ch_force as K5
+    drv, _ = _k5_pair("flagship", cuda)
+    q = 0.6 * torch.randn((140, 603), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(4))
+    before = K5.launches
+    cyc = drv.kernel.cuda.phase_cycles(q)
+    assert K5.launches == before + 1
+    assert list(cyc) == ["stage", "A", "B", "C", "D"]
+    assert all(v > 0 for v in cyc.values())
+    assert drv.kernel.cuda._args(140).trace is None
 
 
 def test_run_segment_with_ch_driver_card_against_cpu(cuda):

@@ -216,6 +216,63 @@ def test_ch_energy_with_cell_and_options_matches_jax():
     _assert_ef(jfn, tfn, _positions(axyz, 7))
 
 
+def _kernel_force_against_jax(pack, jfn, x0, conv, seed, amp=0.05):
+    """The K5/K8 kernel's formulas (``analytic_force_numpy``, float64)
+    against ``jax.grad`` of the JAX energy at the same positions: 1e-9
+    of the largest force (the published g(theta) of both twins costs a
+    few digits near cos = h)."""
+    from sclmd_tpu_torch.kernels.ch_force import analytic_force_numpy
+    rng = np.random.default_rng(seed)
+    q = amp * rng.standard_normal((2, x0.size)) / conv
+    for qt, (e, f) in zip(q, zip(*analytic_force_numpy(pack, q))):
+        ej, fj = _jax_ef(jfn, x0 + (conv * qt).reshape(x0.shape))
+        want = conv * fj.ravel()
+        np.testing.assert_allclose(f, want, rtol=0,
+                                   atol=1e-9 * np.abs(want).max())
+        np.testing.assert_allclose(e, ej, rtol=1e-11)
+
+
+@pytest.mark.parametrize("case", ["cell", "wide"])
+def test_ch_kernel_formulas_match_jax(case):
+    """The periodic graphene_ribbon(3, 3) sheet with its cell (minimum
+    images across the x face), and the ribbon at cutoff_skin 2.5 (a
+    carbon table 20 wide): both now pack for the kernel."""
+    from sclmd_tpu_torch.kernels.ch_force import pack_operands
+    if case == "cell":
+        x0 = TT.graphene_ribbon(3, 3)
+        cell = np.array([x0[:, 0].max() + 1.42, 40.0, 20.0])
+        axyz = TH.terminate_with_h([["C", *row] for row in x0], cell=cell)
+        kw = dict(cell=cell)
+    else:
+        axyz, kw = ribbon_h(), dict(cutoff_skin=2.5)
+    drv = TH.CHDriver(axyz, device="cpu", **kw)
+    if case == "wide":
+        assert drv.energy_fn.terms["nbr_c"].shape[1] > 16
+    jfn, _ = JH.ch_energy(axyz, **kw)
+    pack = pack_operands(drv.energy_fn.terms, drv.xyz, drv.conv)
+    _kernel_force_against_jax(pack, jfn, drv.xyz.reshape(-1, 3), drv.conv,
+                              8, amp=0.08)
+
+
+@pytest.mark.parametrize("lam3", [0.0, 0.7])
+def test_tersoff_kernel_formulas_match_jax(lam3):
+    """K8's pack (every atom a centre) on a periodic sheet with its lattice
+    cell, the published carbon set and one with the lam3 exponential on,
+    against jax.grad of the JAX ``tersoff_energy``."""
+    from sclmd_tpu_torch.kernels.ch_force import pack_tersoff
+    from sclmd_tpu_torch.tools.sheet import sheet
+    axyz, cell = sheet(4, 3)
+    x0 = np.array([a[1:] for a in axyz])
+    p = dict(TT.TERSOFF_PARAMS["C"], lam3=lam3)
+    nbr, mask = build_neighbors(x0, 2.1, None, cell=cell, skin=0.4)
+    terms = TT.tersoff_energy("C", nbr, mask, cell=cell, params=p).terms
+    conv = np.full(x0.size, 0.7)
+    pack = pack_tersoff(terms, x0.ravel(), conv)
+    _kernel_force_against_jax(
+        pack, JT.tersoff_energy("C", nbr, mask, cell=cell, params=p), x0,
+        conv, 9)
+
+
 def test_energy_functions_are_batched():
     """Leading axes are the trajectory batch: the batch's energies and
     forces equal each member's own."""
