@@ -19,7 +19,8 @@ not 0 and no result line is printed):
 5. the main path: ``md.md`` with two phonon baths, then
    ``RunEnsemble(256)`` and ``RunEnsemble(1024)`` at nsteps 2048,
    block 256, after one warm-up call of each, with the kernels' launch
-   counters read around it;
+   counters read around it (K3 once per bath and chunk, K3b once per
+   chunk) and no ``torch.Generator`` made;
 6. ``fused_chunk`` with 4 trajectories x 512 steps and injected draws,
    on the card (kernels) and on the CPU (plain twins, float64);
 7. kernel, twin and library times (CUDA events) at each chunk size: K1's
@@ -30,7 +31,11 @@ not 0 and no result line is printed):
    with the profiler's device duration (``device_ms``) beside the event
    time, which for so short a kernel is the host's time to enqueue it;
    K5 at each chunk size of phase 13, with its float32 twin's time;
-   with the least time the card could take for each (``bound_ms``);
+   K3 at the chunk shapes of phases 5 and 10, with its twin, the library
+   composition ``torch.randn`` + ``torch.matmul``/``torch.einsum`` + the
+   same ``hfft``, and K3 with that ``hfft``; K3b with its twin and
+   ``torch.rand``; with the least time the card could take for each
+   (``bound_ms``);
 8. K6 ``conv_tails`` and K7 ``bath_force`` against their twins: K6 at
    the primary shapes for one trajectory and a ragged batch of 37; K7
    on the primary phonon baths with K6's tails at one trajectory and at
@@ -38,12 +43,13 @@ not 0 and no result line is printed):
    biased electron bath;
 9. the plain path through ``md.Run`` on the primary junction (no block,
    nmd 2048, runs 0 and 1 in two segments each, power spectra on),
-   after a warm-up run, with K6/K7 launch counters read around it;
+   after a warm-up run, with K6/K7 and K3/K3b launch counters read
+   around it;
 10. ``RunEnsemble`` on the plain path (no block) on the harmonic
    flagship at 128 and 1024 trajectories, nsteps 1024, after a warm-up
-   of each, with K7's launch counter read around it; the same calls on
-   a runner with the two leads' temperatures swapped give the heat
-   currents' sign from common random numbers;
+   of each, with K7's and K3/K3b's launch counters read around it; the
+   same calls on a runner with the two leads' temperatures swapped give
+   the heat currents' sign from common random numbers;
 11. 512 plain steps of the ``md.Run`` path (primary, one trajectory) and
    of the flagship ensemble chunk (4 trajectories), injected draws, on
    the card (kernels) and on the CPU (twins, float64);
@@ -57,7 +63,8 @@ not 0 and no result line is printed):
 13. ``RunEnsemble`` on the many-body flagship (the C/H force driver
    through ``AddPotential``: K5 twice a step, K7 three times) at 128 and
    1024 trajectories, nsteps 1024, after a warm-up of each, with both
-   launch counters read around it, a bounded kinetic energy at the end,
+   launch counters (and K3/K3b's) read around it, a bounded kinetic
+   energy at the end,
    and the heat currents' sign from a runner with swapped temperatures on
    the same draws;
 14. 48 many-body steps of a 4-trajectory flagship chunk, injected draws,
@@ -67,9 +74,28 @@ not 0 and no result line is printed):
    ``TersoffDriver`` in float32 with its lattice cell, through
    ``AddPotential``) against its float64 twin at 128 trajectories of
    thermal displacements (bitwise repeat, zero at rest) with its kernel,
-   twin and bound times; ``RunEnsemble(128)`` with the launch counter
-   read around it; 48 steps of a 4-trajectory chunk on the card and in
-   float64 on the CPU, injected draws.
+   twin and bound times; ``RunEnsemble(128)`` with the launch counters
+   read around it (K3; no K3b: the sheet starts at rest); 48 steps of a
+   4-trajectory chunk on the card and in float64 on the CPU, injected
+   draws;
+16. K3 ``noise_synth`` and K3b ``init_draw`` against their twins (the
+   same Philox integers; float64 Box-Muller and product on the card) at
+   the primary junction's factors (one matrix, nc 90, nmd 2048), the
+   flagship's (one matrix, nc 150, nmd 1024), the sheet's (one matrix,
+   nc 48, nmd 1024) and a per-frequency batch of the primary's widths,
+   at every chunk shape of phases 5, 10 and 15 and at md.Run's
+   one-trajectory window of phase 9: the scaled draw within 1e-6 of its
+   largest value
+   (``draw_only``), the series within RTOL of its largest, K3b's
+   uniforms bitwise, bitwise repeats; one trajectory's series bitwise
+   the same from a chunk of 256 and one of 64; the sample variance and
+   lag-1 autocorrelation of a 1024-trajectory draw within 5 standard
+   errors of the values the factors give;
+17. the correctness gate: the MD-vs-NEGF thermal conductance of the
+   harmonic flagship (``antithetic_run`` with the periodic warm start,
+   256 trajectories, nmd 2^14, T 300 K, delta T 10 %, seed 11, float32)
+   against ``j_nat`` of ``scripts/flagship_negf.npz``: ``|dev_pct| <= 2``
+   and ``sem_pct <= 1``.
 
 The workloads are the primary junction of bench.py
 (``sclmd_tpu_torch.tools.primary``: a 100-atom harmonic chain, nph 300,
@@ -102,8 +128,14 @@ import torch
 # relative to the largest magnitude of each compared quantity, since
 # individual heat-current samples pass through zero.
 RTOL = 1e-4
+# K3's scaled draw against its float64 twin: float32 logf/sincospif
+# against float64 libm, a few float32 roundings of values up to ~5.8
+DRAW_RTOL = 1e-6
+# the cross-check gate (phase 17): MD within 2 % of NEGF, resolved to 1 %
+GATE_DEV_PCT, GATE_SEM_PCT = 2.0, 1.0
 SIZES = (256, 1024)     # RunEnsemble trajectory counts of phase 5
 FLAG_SIZES = (128, 1024)  # plain-path RunEnsemble counts of phases 10, 13
+SHEET_NTRAJ = 128       # RunEnsemble trajectories on the sheet, phase 15
 # K5 against its twins (phase 12). The float64 twin on the CPU is the
 # yardstick, at RTOL of the largest force. The float32 twin on the card
 # rounds each 50-angstrom coordinate to 4e-6 angstrom before it takes a
@@ -150,6 +182,34 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+class GeneratorCount:
+    """Counts the ``torch.Generator`` objects made while it is active (the
+    main path must make none: its draws are K3's and K3b's)."""
+
+    def __enter__(self):
+        self.n, self.real = 0, torch.Generator
+
+        def make(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+
+        torch.Generator = make
+        return self
+
+    def __exit__(self, *exc):
+        torch.Generator = self.real
+
+
+def k3_counts():
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    return {"noise_synth": K3.launches, "init_draw": K3.launches_init}
+
+
+def reset_k3():
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    K3.reset_count()
 
 
 def main():
@@ -245,20 +305,26 @@ def main():
     torch.cuda.synchronize()
     K1.reset_count()
     K2.reset_count()
+    reset_k3()
     e2e = {}
-    for ntraj in SIZES:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        means = r.RunEnsemble(ntraj, nsteps=NMD, block=BLOCK)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        assert means.shape == (ntraj, 2) and np.isfinite(means).all()
-        e2e[ntraj] = {"s": wall, "traj_steps_per_s": ntraj * NMD / wall,
-                      "J_left": float(means[:, 0].mean()),
-                      "J_right": float(means[:, 1].mean())}
+    with GeneratorCount() as gens:
+        for ntraj in SIZES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means = r.RunEnsemble(ntraj, nsteps=NMD, block=BLOCK)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert means.shape == (ntraj, 2) and np.isfinite(means).all()
+            e2e[ntraj] = {"s": wall, "traj_steps_per_s": ntraj * NMD / wall,
+                          "J_left": float(means[:, 0].mean()),
+                          "J_right": float(means[:, 1].mean())}
     launches = {"gle_near": K1.launches_near, "gle_far": K1.launches_far,
-                "block_corr_freq": K2.launches}
+                "block_corr_freq": K2.launches, **k3_counts()}
     assert min(launches.values()) > 0, launches
+    nchunks = sum(len(chunk_sizes(r._build_system(), n)) for n in SIZES)
+    assert launches["noise_synth"] == 2 * nchunks and \
+        launches["init_draw"] == nchunks, launches
+    assert gens.n == 0, f"{gens.n} torch.Generator made on the main path"
     nfiles = len([f for f in os.listdir(outdir) if f.startswith("kappa.")])
     assert nfiles == max(SIZES) * 2, nfiles
     print(json.dumps({"phase": 5, "launches": launches, "e2e": e2e}),
@@ -295,6 +361,11 @@ def main():
     k5_ops = k5_operands(dev)
     times["ch_force"] = {n: k5_times(k5_ops["driver"], q)
                          for n, q in k5_ops["q"].items()}
+    k3_ops = k3_operands(dev)
+    times["noise_synth"] = {name: k3_times(*c)
+                            for name, c in k3_ops["k3"].items()}
+    times["init_draw"] = {name: k3b_times(*c)
+                          for name, c in k3_ops["k3b"].items()}
     print(json.dumps({"phase": 7, "ms": times}), flush=True)
 
     # 8. K6 and K7 against their twins
@@ -313,6 +384,10 @@ def main():
     # 15. K8 on the periodic sheet
     k8 = phase_tersoff_sheet(dev)
 
+    # 16. K3 and K3b against their twins, 17. the cross-check gate
+    k3_abs = check_noise_synth(k3_ops)
+    phase_crosscheck(dev)
+
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
     # K6 at one trajectory; K7 at one primary trajectory (two thirds of
@@ -320,6 +395,12 @@ def main():
     k6_t = times["conv_tails"][1]
     k7_t = times["bath_force"]["primary_1"]["mean"]
     k5_t = times["ch_force"][min(times["ch_force"])]
+    # K3 at the primary junction's smallest chunk; K3b at the flagship's
+    # largest (the widest thermal start)
+    k3_t = times["noise_synth"][f"primary_{shapes[0]}"]
+    k3b_t = times["init_draw"]["flagship_1024"]
+    main_runs = [launches, run_launches, ens_launches, mb_launches,
+                 k8["launches"]]
 
     def row(name, source, replaces, launches_, err, tm):
         return {"name": name, "route": "cuda", "source": source,
@@ -350,8 +431,16 @@ def main():
             "sclmd_tpu/models/tersoff.py:186", mb_launches["ch_force"],
             k5_abs, k5_t),
         row("tersoff_force", "sclmd_tpu_torch/csrc/ch_force.cu",
-            "sclmd_tpu/models/tersoff.py:160", k8["launches"], k8["abs"],
-            k8["times"]),
+            "sclmd_tpu/models/tersoff.py:160",
+            k8["launches"]["tersoff_force"], k8["abs"], k8["times"]),
+        row("noise_synth", "sclmd_tpu_torch/csrc/noise_synth.cu",
+            "sclmd_tpu/ops/noise.py:186",
+            sum(c["noise_synth"] for c in main_runs), k3_abs["noise_synth"],
+            k3_t),
+        row("init_draw", "sclmd_tpu_torch/csrc/noise_synth.cu",
+            "sclmd_tpu/md.py:120",
+            sum(c["init_draw"] for c in main_runs), k3_abs["init_draw"],
+            k3b_t),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -676,13 +765,19 @@ def phase_run(dev):
     torch.cuda.synchronize()
     K6.reset_count()
     K7.reset_count()
+    reset_k3()
     t0 = time.perf_counter()
-    r.Run()
+    with GeneratorCount() as gens:
+        r.Run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"conv_tails": K6.launches, "bath_force": K7.launches}
+    counts = {"conv_tails": K6.launches, "bath_force": K7.launches,
+              **k3_counts()}
     nsteps = 2 * NMD
-    assert counts == {"conv_tails": nsteps, "bath_force": 3 * nsteps}, counts
+    # two runs of two baths' noise, one thermal start
+    assert counts == {"conv_tails": nsteps, "bath_force": 3 * nsteps,
+                      "noise_synth": 4, "init_draw": 1}, counts
+    assert gens.n == 0, gens.n
     names = set(os.listdir(outdir))
     for j in (0, 1):
         want = {f"MD{j}.npz", f"power.300.run{j}.dat"} | {
@@ -712,25 +807,30 @@ def phase_flagship(dev):
             r.RunEnsemble(ntraj, nsteps=F.NMD, block=None)
         torch.cuda.synchronize()
         K7.reset_count()
+        reset_k3()
         e2e, means = {}, {}
-        for ntraj in FLAG_SIZES:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            means[ntraj] = r.RunEnsemble(ntraj, nsteps=F.NMD, block=None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            assert means[ntraj].shape == (ntraj, 2)
-            assert np.isfinite(means[ntraj]).all()
-            e2e[ntraj] = {"s": wall,
-                          "traj_steps_per_s": ntraj * F.NMD / wall,
-                          "J_left": float(means[ntraj][:, 0].mean()),
-                          "J_right": float(means[ntraj][:, 1].mean())}
-        runs[temps] = (e2e, means, K7.launches)
-    e2e, fwd, launches = runs[(hot, cold)]
+        with GeneratorCount() as gens:
+            for ntraj in FLAG_SIZES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                means[ntraj] = r.RunEnsemble(ntraj, nsteps=F.NMD,
+                                             block=None)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                assert means[ntraj].shape == (ntraj, 2)
+                assert np.isfinite(means[ntraj]).all()
+                e2e[ntraj] = {"s": wall,
+                              "traj_steps_per_s": ntraj * F.NMD / wall,
+                              "J_left": float(means[ntraj][:, 0].mean()),
+                              "J_right": float(means[ntraj][:, 1].mean())}
+        assert gens.n == 0, gens.n
+        runs[temps] = (e2e, means, K7.launches, k3_counts())
+    e2e, fwd, launches, k3 = runs[(hot, cold)]
     rev = runs[(cold, hot)][1]
-    assert launches == 3 * F.NMD * sum(
-        len(F.chunk_sizes(r._build_system(), n)) for n in FLAG_SIZES), \
-        launches
+    nchunks = sum(len(F.chunk_sizes(r._build_system(), n))
+                  for n in FLAG_SIZES)
+    assert launches == 3 * F.NMD * nchunks, launches
+    assert k3 == {"noise_synth": 2 * nchunks, "init_draw": nchunks}, k3
     # common random numbers: both runners draw the same numbers, so the
     # half-difference keeps the current driven by the temperature
     # difference and cancels the fluctuations the two runs share
@@ -738,11 +838,12 @@ def phase_flagship(dev):
     j = (fwd[n] - rev[n]) / 2
     jl, jr = float(j[:, 0].mean()), float(j[:, 1].mean())
     sem = (j.std(axis=0) / np.sqrt(n)).tolist()
-    print(json.dumps({"phase": 10, "launches": {"bath_force": launches},
+    print(json.dumps({"phase": 10, "launches": {"bath_force": launches,
+                                                **k3},
                       "e2e": e2e, "J_left": jl, "J_right": jr,
                       "J_sem": sem}), flush=True)
     assert jl > 0 > jr, (jl, jr, sem)
-    return {"bath_force": launches}
+    return {"bath_force": launches, **k3}
 
 
 def phase_card_vs_cpu(dev):
@@ -881,30 +982,36 @@ def phase_many_body(dev):
         torch.cuda.synchronize()
         K5.reset_count()
         K7.reset_count()
+        reset_k3()
         e2e, means = {}, {}
-        for ntraj in FLAG_SIZES:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            means[ntraj] = r.RunEnsemble(ntraj, nsteps=F.NMD)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            ke = r.energy(r.state)
-            assert means[ntraj].shape == (ntraj, 2)
-            assert np.isfinite(means[ntraj]).all()
-            assert np.isfinite(ke) and 0.0 < ke < KE_BOUND, ke
-            e2e[ntraj] = {"s": wall,
-                          "traj_steps_per_s": ntraj * F.NMD / wall,
-                          "kinetic_energy_end": ke,
-                          "J_left": float(means[ntraj][:, 0].mean()),
-                          "J_right": float(means[ntraj][:, 1].mean())}
+        with GeneratorCount() as gens:
+            for ntraj in FLAG_SIZES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                means[ntraj] = r.RunEnsemble(ntraj, nsteps=F.NMD)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ke = r.energy(r.state)
+                assert means[ntraj].shape == (ntraj, 2)
+                assert np.isfinite(means[ntraj]).all()
+                assert np.isfinite(ke) and 0.0 < ke < KE_BOUND, ke
+                e2e[ntraj] = {"s": wall,
+                              "traj_steps_per_s": ntraj * F.NMD / wall,
+                              "kinetic_energy_end": ke,
+                              "J_left": float(means[ntraj][:, 0].mean()),
+                              "J_right": float(means[ntraj][:, 1].mean())}
+        assert gens.n == 0, gens.n
         runs[temps] = (e2e, means, {"ch_force": K5.launches,
-                                    "bath_force": K7.launches})
+                                    "bath_force": K7.launches,
+                                    **k3_counts()})
     e2e, fwd, launches = runs[(hot, cold)]
     rev = runs[(cold, hot)][1]
     nchunks = sum(len(F.chunk_sizes(r._build_system(), n))
                   for n in FLAG_SIZES)
     assert launches == {"ch_force": 2 * F.NMD * nchunks,
-                        "bath_force": 3 * F.NMD * nchunks}, launches
+                        "bath_force": 3 * F.NMD * nchunks,
+                        "noise_synth": 2 * nchunks,
+                        "init_draw": nchunks}, launches
     n = max(FLAG_SIZES)
     j = (fwd[n] - rev[n]) / 2             # common random numbers
     jl, jr = float(j[:, 0].mean()), float(j[:, 1].mean())
@@ -1032,7 +1139,7 @@ def phase_tersoff_sheet(dev, nsteps=48):
     from sclmd_tpu_torch.tools import sheet as S
     from sclmd_tpu_torch.tools.flagship import chunk_sizes
 
-    ntraj = 128
+    ntraj = SHEET_NTRAJ
     r = S.sheet_runner(torch.float32, dev, tempfile.mkdtemp())
     drv = r.pforce
     assert drv.kernel.cuda.pack["kind"] == "tersoff"
@@ -1045,11 +1152,18 @@ def phase_tersoff_sheet(dev, nsteps=48):
     r.RunEnsemble(ntraj, nsteps=S.NMD)            # warm-up
     torch.cuda.synchronize()
     K5.reset_count()
+    reset_k3()
     t0 = time.perf_counter()
-    means = r.RunEnsemble(ntraj, nsteps=S.NMD)
+    with GeneratorCount() as gens:
+        means = r.RunEnsemble(ntraj, nsteps=S.NMD)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    assert gens.n == 0, gens.n
     launches = K5.launches_tersoff
+    k3 = k3_counts()
+    # the sheet starts at rest: noise for its two baths, no phases
+    nchunks = len(chunk_sizes(r._build_system(), ntraj))
+    assert k3 == {"noise_synth": 2 * nchunks, "init_draw": 0}, k3
     ke = r.energy(r.state)
     assert means.shape == (ntraj, 2) and np.isfinite(means).all()
     assert np.isfinite(ke) and 0.0 < ke < KE_BOUND, ke
@@ -1070,14 +1184,301 @@ def phase_tersoff_sheet(dev, nsteps=48):
         out.append((fin.p, fin.q, sums))
     errs = [rel_err(a, b)[0] for a, b in zip(*out)]
     print(json.dumps({
-        "phase": 15, "launches": {"tersoff_force": launches},
+        "phase": 15, "launches": {"tersoff_force": launches, **k3},
         "e2e": {ntraj: {"s": wall, "traj_steps_per_s": ntraj * S.NMD / wall,
                         "kinetic_energy_end": ke}},
         "ms": t, "nsteps": nsteps,
         "rel_err": dict(zip(("p", "q", "cur_sum"), errs)), "rtol": RTOL}),
         flush=True)
     assert max(errs) <= RTOL, errs
-    return {"launches": launches, "abs": err, "times": t}
+    return {"launches": {"tersoff_force": launches, **k3}, "abs": err,
+            "times": t}
+
+
+# --- noise synthesis: K3 and K3b -------------------------------------------
+K3_SEED = 2026
+
+
+def batch_factors(nc, nmd, dev, seed=3):
+    """Per-frequency (nmd/2+1, nc, nc) factors of a random Hermitian PSD
+    that is not proportional across frequencies, complex64 and float32."""
+    from sclmd_tpu_torch.ops.noise import factor_matrix, noise_factors
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(nc, nc)) + 1j * rng.normal(size=(nc, nc))
+    h = nmd // 2 + 1
+    w = np.linspace(0.0, 1.0, h)[:, None, None]
+    m = base[None] * np.exp(-w) + 1j * w * base.T[None]
+    psd = m @ np.conj(np.swapaxes(m, 1, 2)) + nc * np.eye(nc)[None]
+    ev, std = noise_factors(psd, dtype=np.float32)
+    ev = factor_matrix(ev)
+    assert ev.ndim == 3, "the spectrum must not be proportional"
+    return torch.as_tensor(ev, device=dev), torch.as_tensor(std, device=dev)
+
+
+def k3_operands(dev):
+    """K3's factors and windows at the shapes the main path gives it: the
+    primary junction's baths (a scalar friction profile: one (90, 90)
+    matrix, nmd 2048) at each chunk shape of phase 5, the flagship's
+    electron baths (one (150, 150) matrix, nmd 1024) at each chunk shape
+    of phase 10, the periodic sheet's (one (48, 48) matrix, nmd 1024) at
+    the chunk shapes of phase 15's 128 trajectories, md.Run's window of
+    phase 9 (run j = 1 of the primary: trajectories [1, 2)), and the
+    per-frequency batch path (the phonon baths of a matrix-valued friction
+    profile; here a random PSD of the primary's widths, nc 90, nmd 2048)
+    at phase 5's chunk shapes; K3b at the thermal starts of the runners'
+    chunks and of md.Run (window [0, 1)). Each K3 case is (evecs, std, dt,
+    nmd, ntraj, lo), each K3b case (ntraj, nph, device, lo); phase 16
+    holds the runners' chunks at lo = 3, a window inside the ensemble."""
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools import primary as P
+    from sclmd_tpu_torch.tools import sheet as S
+
+    pr = P.primary_runner(torch.float32, dev, tempfile.mkdtemp())
+    fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp())
+    sr = S.sheet_runner(torch.float32, dev, tempfile.mkdtemp())
+    pshapes = sorted({n for ntraj in SIZES
+                      for n in P.chunk_sizes(pr._build_system(), ntraj)})
+    fshapes = sorted({n for ntraj in FLAG_SIZES
+                      for n in F.chunk_sizes(fr._build_system(), ntraj)})
+    sshapes = sorted(set(F.chunk_sizes(sr._build_system(), SHEET_NTRAJ)))
+    bev, bstd = batch_factors(P.NC, P.NMD, dev)
+    k3, k3b = {}, {}
+    for name, r, shapes in (("primary", pr, pshapes),
+                            ("flagship", fr, fshapes),
+                            ("sheet", sr, sshapes)):
+        ev, std = bath_factors(r.baths, dev)[0]
+        for n in shapes:
+            k3[f"{name}_{n}"] = (ev, std, r.dt, r.nmd, n, 3)
+            if name != "sheet":         # the sheet starts at rest
+                k3b[f"{name}_{n}"] = (n, r.nph, dev, 3)
+    ev, std = bath_factors(pr.baths, dev)[0]
+    k3["run_window"] = (ev, std, pr.dt, pr.nmd, 1, 1)
+    k3b["run_window"] = (1, pr.nph, dev, 0)
+    for n in pshapes:
+        k3[f"batch_{n}"] = (bev, bstd, P.DT, P.NMD, n, 3)
+        k3b[f"batch_{n}"] = (n, pr.nph, dev, 3)
+    return {"k3": k3, "k3b": k3b}
+
+
+def k3_times(ev, std, dt, nmd, n, lo=0):
+    """K3 at one shape: kernel, its twin on the card (int64 Philox, the
+    product as batched matrix-vector products), K3 with the C2R ``hfft``
+    that makes the series, and the library composition: ``torch.randn``
+    x std, ``torch.matmul`` (one matrix) or ``torch.einsum`` (a batch),
+    and the same ``hfft`` (no single PyTorch call computes K3's
+    function). Bound: U and std read once, the half spectrum written
+    once; 4 nc^2 operations per (trajectory, frequency) at the float32
+    peak."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.ops.noise import series_from_halfspectrum
+    from sclmd_tpu_torch.tools.noise_bench import library_draw_product
+    h, nc = std.shape
+
+    def kernel():
+        return K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 0, lo, lo + n)
+
+    def draw_product():
+        return library_draw_product(ev, std, n)
+
+    flops = 4 * nc * nc * h * n
+    nbytes = ev.numel() * 8 + std.numel() * 4 + n * h * nc * 8
+    t = _timed(kernel, lambda: K3.halfspectrum_plain(ev, std, K3_SEED, 0, lo,
+                                                     lo + n),
+               None, flops, nbytes, 10, 1)
+    t["kernel_hfft"] = cuda_ms(
+        lambda: series_from_halfspectrum(kernel(), dt, nmd), 10)
+    t["library_draw_product"] = cuda_ms(draw_product, 10)
+    t["library_composition"] = cuda_ms(
+        lambda: series_from_halfspectrum(draw_product(), dt, nmd), 10)
+    t["library_name"] = ("torch.randn + " + ("torch.matmul" if ev.ndim == 2
+                                             else "torch.einsum")
+                         + " + torch.fft.hfft")
+    t["plan"] = K3.launch_plan(nc, n, h, ev.ndim == 3,
+                               torch.cuda.get_device_properties(
+                                   std.device).multi_processor_count)
+    return t
+
+
+# Philox4x32-10 and the uniform, counted as 32-bit integer operations per
+# uniform: ten rounds of two 32x32-bit products (hi and lo), two xors and
+# key additions per four words, then shift, or and convert
+K3B_OPS_PER_VALUE = 10 * (4 + 4 + 2) / 4 + 3
+
+
+def k3b_times(n, nph, dev, lo=0):
+    """K3b at one thermal start: kernel, twin (the same integers on the
+    card), ``torch.rand`` (the library's uniforms, not these bits); bound
+    by the phases written once (integer operations at the float32
+    peak)."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.ops import philox
+    return _timed(
+        lambda: K3.init_uniforms_cuda(K3_SEED, 2, lo, lo + n, nph, dev),
+        lambda: philox.uniforms(K3_SEED, 2, lo, lo + n, nph, dev),
+        lambda: torch.rand((n, nph), device=dev),
+        K3B_OPS_PER_VALUE * n * nph, 4 * n * nph, 50, 5)
+
+
+def _expected_lag_cov(ev, std, dt, nmd, lag):
+    """The time-averaged covariance <x_c(t) x_c(t+lag)> of the series,
+    averaged over channels, from the factors (host float64): the
+    frequencies are independent, and a paired frequency m contributes
+    2 E|xi_m|^2 cos(2 pi m lag / nmd) (the pseudo-covariance of a real
+    draw oscillates in t and averages out over the period)."""
+    U = ev.detach().cpu().to(torch.complex128).numpy()
+    s2 = std.detach().double().cpu().numpy() ** 2            # (h+1, nc)
+    h = nmd // 2
+    if U.ndim == 2:
+        P = s2 @ (np.abs(U) ** 2).T                           # (h+1, nc)
+        R0 = (U.real ** 2) @ s2[0]
+        Rh = (U.real ** 2) @ s2[h]
+    else:
+        P = np.einsum("wck,wk->wc", np.abs(U) ** 2, s2)
+        R0 = (U[0].real ** 2) @ s2[0]
+        Rh = (U[h].real ** 2) @ s2[h]
+    m = np.arange(1, h)
+    c = R0 + (-1) ** lag * Rh + 2 * (np.cos(2 * np.pi * m * lag / nmd)
+                                     @ P[1:h])
+    return float(c.mean()) / (nmd * dt) ** 2
+
+
+def check_noise_synth(ops, nstat=1024):
+    """Phase 16: K3 and K3b against their twins, bitwise repeats and chunk
+    invariance, and the statistics of a large draw. Returns the largest
+    absolute errors (K3's half spectrum against its float64 twin; K3b's
+    uniforms, 0 when bitwise)."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.ops import philox
+    from sclmd_tpu_torch.ops.noise import (schedule_noise,
+                                           series_from_halfspectrum)
+    worst = {"noise_synth": 0.0, "init_draw": 0.0}
+    for name, (ev, std, dt, nmd, n, lo) in ops["k3"].items():
+        xi = K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 1, lo, lo + n)
+        again = K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 1, lo, lo + n)
+        draw = K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 1, lo, lo + n,
+                                          draw_only=True)
+        want_draw = K3.draw_plain(std.double(), K3_SEED, 1, lo, lo + n)
+        draw_rel = rel_err(draw, want_draw)[0]
+        del draw, want_draw
+        want = K3.halfspectrum_plain(ev.to(torch.complex128), std.double(),
+                                     K3_SEED, 1, lo, lo + n)
+        xi_rel, xi_abs = rel_err(xi, want)
+        series_rel = rel_err(series_from_halfspectrum(xi, dt, nmd),
+                             series_from_halfspectrum(want, dt, nmd))[0]
+        del want
+        worst["noise_synth"] = max(worst["noise_synth"], xi_abs)
+        out = {"phase": 16, "case": name, "ntraj": n, "lo": lo,
+               "factors": "batch" if ev.ndim == 3 else "one matrix",
+               "plan": K3.launch_plan(
+                   std.shape[1], n, std.shape[0], ev.ndim == 3,
+                   torch.cuda.get_device_properties(
+                       std.device).multi_processor_count),
+               "draw_rel_err": draw_rel, "draw_rtol": DRAW_RTOL,
+               "halfspectrum_rel_err": xi_rel, "series_rel_err": series_rel,
+               "rtol": RTOL, "bitwise_repeat": bool(torch.equal(xi, again))}
+        if name in ops["k3b"]:
+            m, nph, _, ulo = ops["k3b"][name]
+            u = K3.init_uniforms_cuda(K3_SEED, 2, ulo, ulo + m, nph,
+                                      std.device)
+            u_twin = philox.uniforms(K3_SEED, 2, ulo, ulo + m, nph,
+                                     std.device)
+            worst["init_draw"] = max(worst["init_draw"],
+                                     float((u - u_twin).abs().max()))
+            out["init_draw_bitwise"] = bool(torch.equal(u, u_twin))
+            assert out["init_draw_bitwise"], out
+        print(json.dumps(out), flush=True)
+        assert draw_rel <= DRAW_RTOL and series_rel <= RTOL, out
+        assert out["bitwise_repeat"], out
+        del xi, again
+    for name in ("primary", "flagship", "batch"):
+        ev, std, dt, nmd, *_ = next(v for k, v in ops["k3"].items()
+                                   if k.startswith(name))
+        # one trajectory's series from a chunk of 256 and one of 64
+        a = schedule_noise(ev, std, K3_SEED, 0, 0, 256, dt, nmd)
+        b = schedule_noise(ev, std, K3_SEED, 0, 192, 256, dt, nmd)
+        same = bool(torch.equal(a[200], b[8]) and torch.equal(a[192:], b))
+        del a, b
+        # statistics of a large draw against the factors' values
+        x = schedule_noise(ev, std, K3_SEED, 0, 0, nstat, dt, nmd).double()
+        v = (x * x).mean(dim=(1, 2))
+        c1 = (x * torch.roll(x, -1, dims=1)).mean(dim=(1, 2))
+        del x
+        stats = {}
+        for key, sample, lag in (("var", v, 0), ("lag1", c1, 1)):
+            want = _expected_lag_cov(ev, std, dt, nmd, lag)
+            got, se = float(sample.mean()), float(sample.std() / nstat ** 0.5)
+            stats[key] = {"sample": got, "expected": want, "se": se,
+                          "z": (got - want) / se}
+        out = {"phase": 16, "case": f"{name}_statistics", "ntraj": nstat,
+               "chunk_invariant": same, **stats}
+        print(json.dumps(out), flush=True)
+        assert same, out
+        assert all(abs(s_["z"]) <= 5.0 for s_ in stats.values()), out
+    return worst
+
+
+def phase_crosscheck(dev, ntraj=256):
+    """Phase 17: the MD-vs-NEGF thermal conductance of the harmonic
+    flagship (``antithetic_run`` warm-started on the periodic attractor,
+    float32 on the card) against the committed NEGF answer."""
+    from sclmd_tpu_torch import md as TMD
+    from sclmd_tpu_torch import units
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.parallel import ensemble as TE
+    from sclmd_tpu_torch.tools import flagship as F
+
+    negf = np.load(F.NPZ)
+    nmd, seed = 2 ** 14, 11
+    TL, TR = F.T * (1 + F.DELTA / 2), F.T * (1 - F.DELTA / 2)
+
+    def build(Ta, Tb):
+        return F.flagship_runner(torch.float32, dev, tempfile.mkdtemp(),
+                                 nmd=nmd, seed=seed, temps=(Ta, Tb))
+
+    spent = {"jacobian_s": 0.0, "power_s": 0.0, "solve_s": 0.0}
+
+    def timed(fn, key):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key] += time.perf_counter() - t0
+            return timed(out, "solve_s") if callable(out) else out
+        return wrapped
+
+    real = (TMD.gle_step_jacobian, TMD.period_power, TMD.fixed_point_solver)
+    TMD.gle_step_jacobian = timed(real[0], "jacobian_s")
+    TMD.period_power = timed(real[1], "power_s")
+    TMD.fixed_point_solver = timed(real[2], "solve_s")
+    reset_k3()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        j = TE.antithetic_run(build, TL, TR, ntraj, nsteps=nmd, seed=seed,
+                              warm_start=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TMD.gle_step_jacobian, TMD.period_power, TMD.fixed_point_solver = real
+    j_md, j_ref = float(j.mean()), float(negf["j_nat"])
+    sem = float(j.std() / np.sqrt(len(j)))
+    dev_pct = (j_md - j_ref) / j_ref * 100
+    sem_pct = sem / abs(j_ref) * 100
+    system = build(TL, TR)._build_system()
+    nchunks = -(-ntraj // TE.auto_chunk(system, ntraj, nmd, None))
+    out = {"phase": 17, "ntraj": ntraj, "nmd": nmd, "seed": seed,
+           "dev_pct": dev_pct, "sem_pct": sem_pct,
+           "kappa_md_nw_per_k": j_md / (F.T * F.DELTA) * units.CURCOF,
+           "kappa_negf_nw_per_k": float(negf["kappa_nw_per_k"]),
+           "j_md": j_md, "j_negf": j_ref, **spent, "wall_s": wall,
+           "chunks": nchunks, "launches": k3_counts(),
+           "dev_pct_bound": GATE_DEV_PCT, "sem_pct_bound": GATE_SEM_PCT}
+    print(json.dumps(out), flush=True)
+    # two baths, one synthesis per chunk and direction; zero starts
+    assert out["launches"] == {"noise_synth": 2 * 2 * nchunks,
+                               "init_draw": 0}, out["launches"]
+    assert np.isfinite(j).all(), j
+    assert abs(dev_pct) <= GATE_DEV_PCT and sem_pct <= GATE_SEM_PCT, out
 
 
 if __name__ == "__main__":

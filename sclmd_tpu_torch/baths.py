@@ -397,7 +397,7 @@ def phbath(T, cats, debye, nw, dt, nmd, ml=None, mcof=2.0,
     if K00 is not None and K01 is not None and V01 is not None:
         raise NotImplementedError(
             "phbath: the K00/K01/V01 lead-block mode needs the decimation "
-            "self-energy, not ported yet (ROADMAP queue 1 item 6)")
+            "self-energy, not ported yet (ROADMAP queue 1 item 4)")
     cats_np = np.asarray(cats, dtype=np.int64)
     nc = int(cats_np.shape[0])
     wmax = float(mcof * debye)

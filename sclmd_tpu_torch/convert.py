@@ -77,7 +77,7 @@ def from_jax_system(system, device=None, driver=None,
     if getattr(system, "force_params", None) is not None:
         raise NotImplementedError(
             "from_jax_system: traced force_params are not ported "
-            "(ROADMAP queue 1 item 8)")
+            "(ROADMAP queue 1 item 6)")
     return GLESystem(
         force_fn=None if driver is None else driver.force_torch,
         cf_fn=None if cf_driver is None else cf_driver.force_torch,

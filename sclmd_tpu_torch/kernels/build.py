@@ -126,6 +126,13 @@ def load() -> ctypes.CDLL:
     lib.ch_force_max_groups.restype = ci
     lib.ch_force_trace_len.argtypes = []
     lib.ch_force_trace_len.restype = ci
+    cu = ctypes.c_uint
+    lib.noise_synth_r.argtypes = []
+    lib.noise_synth_r.restype = ci
+    lib.noise_synth_f32.argtypes = [vp, vp]
+    lib.noise_synth_f32.restype = ci
+    lib.init_draw_f32.argtypes = [vp, ci, ci, cu, cu, cu, vp]
+    lib.init_draw_f32.restype = ci
     _lib = lib
     return lib
 

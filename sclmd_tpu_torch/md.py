@@ -30,14 +30,18 @@ Step structure (the reference's 3-bath-eval / 2-potential-eval scheme):
     p'  = p_half + f2 dt/2 ;  constrain p', q'
 
 Ported so far: the harmonic force (``dyn``) and force drivers
-(``AddPotential``, ``CompareForce``), both integrators, and the ``md``
+(``AddPotential``, ``CompareForce``), both integrators, the ``md``
 runner's ``Run`` (segments, ``MD{j}.npz`` checkpoints with the JAX
 package's keys and shapes, so either package resumes the other's
-checkpoints) and fused ``RunEnsemble``. A system with a force driver
-takes the plain step: K1 fuses the harmonic force into its recurrence.
-Random draws come from the counter-keyed ``torch.Generator`` schedule of
-``parallel.ensemble``, so they are not the JAX package's draws; tests
-inject the same noise into both. Still to port (ROADMAP queue 1): the
+checkpoints) and fused ``RunEnsemble`` (with ``steady_init``), and the
+periodic warm start (``steady_mode_temps``, ``state_ravel``/
+``state_unravel`` in the JAX order, ``gle_step_jacobian``,
+``period_power``, ``fixed_point_solver``, ``periodic_fixed_point``). A
+system with a force driver takes the plain step: K1 fuses the harmonic
+force into its recurrence. Random draws come from the counter-keyed
+Philox schedule of ``parallel.ensemble`` (kernels K3 and K3b on the
+card), so they are not the JAX package's draws; tests inject the same
+noise into both. Still to port (ROADMAP queue 1): the
 checkpointed/segmented ``RunEnsemble`` and traced ``force_params``.
 """
 
@@ -183,6 +187,130 @@ def set_dyn(dyn, dtype=torch.float64, device=None):
                  for x in (dyn, hw, au))
 
 
+def steady_mode_temps(evecs, baths, T, hw=None):
+    """Coupling-weighted steady-state temperature per normal mode (the
+    JAX package's ``steady_mode_temps``, copied; host numpy).
+
+    T_i = sum_b g_bi T_b / sum_b g_bi with g_bi = s_b(hw_i) sum_{d in b}
+    U[d, i]^2, s_b the bath's mean diagonal friction (an electron bath's
+    efric; a phonon bath's Gamma(w) diagonal at the mode frequency when
+    ``hw`` is given). Modes with negligible total coupling keep ``T``.
+    Equal bath temperatures return that temperature exactly, so
+    ``RunEnsemble(steady_init=True)`` then repeats the uniform start
+    bitwise."""
+    U_ = np.asarray(evecs.cpu() if torch.is_tensor(evecs) else evecs,
+                    np.float64)
+    nm = U_.shape[1]
+    temps = [float(b.T) for b in baths]
+    if temps and all(t == temps[0] for t in temps):
+        return np.full(nm, temps[0])
+    num = np.zeros(nm)
+    den = np.zeros(nm)
+    for b in baths:
+        proj = (U_[np.asarray(b.cids), :] ** 2).sum(axis=0)
+        if getattr(b, "efric", None) is not None:
+            g = float(np.mean(np.diag(_host(b.efric)))) * proj
+        elif getattr(b, "gamma", None) is not None:
+            gam = np.asarray(b.gamma, np.float64)
+            gwl = np.asarray(b.gwl, np.float64)
+            sdiag = np.einsum("wii->w", gam) / gam.shape[1]
+            if hw is None:
+                g = float(sdiag.mean()) * proj
+            else:
+                w = np.clip(np.abs(np.asarray(hw, np.float64)),
+                            gwl[0], gwl[-1])
+                g = np.interp(w, gwl, sdiag) * proj
+        else:
+            g = proj
+        num += g * float(b.T)
+        den += g
+    tol = 1e-8 * max(float(den.max()), 1e-300)
+    safe = np.where(den > tol, den, 1.0)
+    return np.where(den > tol, num / safe, float(T))
+
+
+def state_ravel(st: MDState) -> np.ndarray:
+    """The batch of states as host rows [p, q, phis, qhis] (the JAX
+    package's order): (traj, (3 + ml) nph)."""
+    n = st.p.shape[0]
+    return _host(torch.cat([st.p, st.q, st.phis.reshape(n, -1),
+                            st.qhis.reshape(n, -1)], dim=1))
+
+
+def state_unravel(x, system: GLESystem, dtype=None) -> MDState:
+    """Inverse of ``state_ravel``, on the system's device; a single
+    (n,) vector gives a batch of one."""
+    nph, ml = system.nph, system.ml
+    dtype = dtype or system.mask.dtype
+    x = torch.as_tensor(np.asarray(x), device=system.mask.device)
+    x = x.reshape(-1, x.shape[-1]).to(dtype)
+    n = x.shape[0]
+    return MDState(
+        t=torch.zeros((n,), dtype=torch.long, device=x.device),
+        p=x[:, :nph].contiguous(), q=x[:, nph:2 * nph].contiguous(),
+        phis=x[:, 2 * nph:(2 + ml) * nph].reshape(n, ml, nph).contiguous(),
+        qhis=x[:, (2 + ml) * nph:].reshape(n, 1, nph).contiguous())
+
+
+def gle_step_jacobian(system: GLESystem) -> np.ndarray:
+    """Host float64 one-step Jacobian A of the plain GLE step at zero
+    noise, in the ``state_ravel`` basis (``ops.exact_gle.linearize_step``:
+    the basis states stepped once through ``run_segment``). For a
+    harmonic system the step is affine, so A is exact."""
+    from sclmd_tpu_torch.ops.exact_gle import linearize_step
+    return linearize_step(system)
+
+
+def period_power(A, nperiod: int, device=None) -> np.ndarray:
+    """A^nperiod by binary powering, in float64: numpy on the host, or
+    torch on ``device`` (a CUDA card's float64 GEMMs); returns numpy."""
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type != "cpu":
+        base = torch.as_tensor(np.asarray(A, np.float64), device=dev)
+        power = torch.eye(base.shape[0], dtype=torch.float64, device=dev)
+    else:
+        base = np.asarray(A, np.float64)
+        power = np.eye(base.shape[0])
+    k = int(nperiod)
+    while k:
+        if k & 1:
+            power = power @ base
+        k >>= 1
+        if k:
+            base = base @ base
+    return _host(power) if torch.is_tensor(power) else power
+
+
+def fixed_point_solver(power, tol: float = 1e-8):
+    """x1 -> x* = (I - A^P)^+ x1, the least-squares point of the discrete
+    periodic attractor of a noise period, with c = x1 the end-of-period
+    state of a zero-start run ((n,) or (batch, n), ``state_ravel``
+    order). The pseudo-inverse is formed once (one SVD, host float64) for
+    every batch and direction of a system; singular values at or below
+    ``tol`` times the largest are dropped (undamped modes
+    near-commensurate with the period), as the JAX package's
+    ``lstsq(rcond=tol)`` drops them."""
+    P = np.asarray(power, np.float64)
+    pinv = np.linalg.pinv(np.eye(P.shape[0]) - P, rcond=tol)
+
+    def solve(x1):
+        x1 = np.asarray(x1, np.float64)
+        return x1 @ pinv.T if x1.ndim == 2 else pinv @ x1
+
+    return solve
+
+
+def periodic_fixed_point(A, x1, nperiod: int, tol: float = 1e-8,
+                         power=None):
+    """Initial state(s) on the discrete periodic attractor: one
+    ``fixed_point_solver`` solve of ``x1``, with ``power`` = A^nperiod
+    computed here when not given. The JAX package's
+    ``periodic_fixed_point``."""
+    if power is None:
+        power = period_power(A, nperiod)
+    return fixed_point_solver(power, tol)(x1)
+
+
 def _check_noise(system: GLESystem, ntraj: int, who: str):
     for b in system.baths:
         if b.noise is None or b.noise.ndim != 3 or \
@@ -288,7 +416,7 @@ def _check_blocked(system: GLESystem, ntraj: int):
             raise NotImplementedError(
                 "run_segment_blocked: only non-local phonon baths (ml > 1) "
                 "are ported to K1; electron and local baths take the plain "
-                "step, run_segment (ROADMAP queue 1 item 9)")
+                "step, run_segment (ROADMAP queue 1 item 7)")
     _check_noise(system, ntraj, "run_segment_blocked")
 
 
@@ -377,16 +505,29 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def _write_text(path: str, text: str):
+    """Write a small text file through raw ``os.open``/``os.write``: the
+    runner writes one kappa file per trajectory and bath, and buffered
+    ``open()`` costs several times the two syscalls a file (the JAX
+    package measured 2-3 ms against 0.13 ms; ``sclmd_tpu/md.py:396``).
+    The bytes are those ``open(path, "w").write(text)`` would write."""
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        os.write(fd, text.encode())
+    finally:
+        os.close(fd)
+
+
 class md:
     """User-facing MD runner with the JAX package's constructor, method
     names and output files.
 
     ``Run`` draws each run's noise, and its thermal start, from the
-    counter-keyed ``torch.Generator`` schedule of ``parallel.ensemble``
-    (stream = bath index for the noise of run j, index j; stream = number
-    of baths for the start), seeded by the runner's seed and call count.
-    These are not the JAX package's draws; a resumed run reads its noise
-    back from ``MD{j}.npz`` as in the JAX package.
+    counter-keyed Philox schedule of ``parallel.ensemble`` (stream = bath
+    index for the noise of run j, index j; stream = number of baths for
+    the start; kernels K3 and K3b on the card), seeded by the runner's
+    seed and call count. These are not the JAX package's draws; a resumed
+    run reads its noise back from ``MD{j}.npz`` as in the JAX package.
     """
 
     def __init__(self, dt, nmd, T, syslist=None, axyz=None, dyn=None,
@@ -587,17 +728,13 @@ class md:
         return thermal_init(us, system, self.hw, self.U, self.T)
 
     def _draw_noise(self, seed: int, j: int):
-        """Fresh noise of run ``j`` for every bath, as a batch of one."""
-        from sclmd_tpu_torch.ops.noise import sample_noise_from_r
+        """Fresh noise of run ``j`` for every bath, as a batch of one:
+        trajectory j of the schedule (K3 on the card)."""
         from sclmd_tpu_torch.parallel.ensemble import (bath_factors,
-                                                       counter_generator)
+                                                       chunk_noise)
         facs = bath_factors(self.baths, self.device)
-        for i, (ev, std) in enumerate(facs):
-            r = torch.randn(tuple(std.shape), dtype=std.dtype,
-                            device=self.device,
-                            generator=counter_generator(seed, i, j,
-                                                        self.device))
-            nz = sample_noise_from_r(r[None], ev, std, self.dt, self.nmd)
+        for i, nz in enumerate(chunk_noise(facs, seed, j, j + 1, self.dt,
+                                           self.nmd)):
             self.baths[i] = self.baths[i].replace(noise=nz.to(self.dtype))
 
     def info(self):
@@ -791,19 +928,23 @@ class md:
         """Run ``ntraj`` independent trajectories; returns the
         per-trajectory mean bath currents (ntraj, nbaths) after skipping
         the first ``equil_frac`` of the steps, and writes the
-        kappa.T.bathI.runJ.dat files.
+        kappa.T.bathI.runJ.dat files (a chunk's files while the next chunk
+        runs on the card).
 
         The blocked integrator runs when ``block`` (or the runner's)
         divides ``nsteps`` and the baths are non-local phonon baths; else
         the plain step, as the JAX runner falls back to it. Chunks of
         ``chunk`` trajectories (default: ``auto_chunk`` from the card's
         memory) run one after another, each synthesising only its own
-        noise. Every draw comes from a generator keyed by (seed, stream,
-        trajectory index), so the draws do not depend on the chunking.
+        noise (K3 on the card, one launch per bath and chunk; K3b for the
+        thermal phases). Every draw is keyed by (seed, stream, trajectory
+        index), so the draws do not depend on the chunking.
+        ``steady_init``: the thermal start takes each mode's steady-state
+        temperature (``steady_mode_temps``) instead of the runner's T.
 
         The signature is the reference's. As there, ``npie`` must divide
-        ``nsteps`` (ValueError); ``npie > 1``, ``checkpoint=True`` and
-        ``steady_init=True`` are not ported yet and raise.
+        ``nsteps`` (ValueError); ``npie > 1`` and ``checkpoint=True`` are
+        not ported yet and raise.
         """
         from sclmd_tpu_torch.parallel.ensemble import (
             auto_chunk, bath_factors, draw_chunk, fused_chunk)
@@ -816,11 +957,7 @@ class md:
         if checkpoint or npie != 1:
             raise NotImplementedError(
                 "RunEnsemble: the checkpointed and segmented (npie > 1) "
-                "branches are not ported yet (ROADMAP queue 1 item 4)")
-        if steady_init:
-            raise NotImplementedError(
-                "RunEnsemble: steady_init (the steady-state mode "
-                "temperatures) is not ported yet (ROADMAP queue 1 item 4)")
+                "branches are not ported yet (ROADMAP queue 1 item 2)")
         system = self._build_system()
         block = block if block is not None else self.block
         if not (block and nsteps % block == 0 and blocked_supports(system)):
@@ -833,6 +970,9 @@ class md:
 
         seed = self._next_seed()
         thermal = self.initranvel and self.dyn is not None
+        T_init = self.T
+        if thermal and steady_init and self.baths:
+            T_init = steady_mode_temps(self.U, self.baths, self.T, hw=self.hw)
         facs = bath_factors(self.baths, self.device)
         cur_sum = np.zeros((ntraj, nb))
         cur_cnt = nsteps - min(skip, nsteps)
@@ -845,18 +985,21 @@ class md:
                     f"RunEnsemble: non-finite heat currents in chunk {dic} "
                     "- reduce dt or check the force driver")
             cur_sum[d0:d1] += dsum.double().cpu().numpy()
+            # the chunk's kappa files, while the next chunk runs on the card
+            self._write_kappa_files(cur_sum[d0:d1] / max(cur_cnt, 1), d0)
 
         first = None
         for ic in range(-(-ntraj // chunk)):
             c0, c1 = ic * chunk, min((ic + 1) * chunk, ntraj)
-            rs, us = draw_chunk(facs, seed, c0, c1, self.nph if thermal
-                                else None, self.device, self.dtype)
+            noises, us = draw_chunk(facs, seed, c0, c1, self.nph if thermal
+                                    else None, self.device, self.dtype,
+                                    self.dt, self.nmd)
             finals, sums, ok = fused_chunk(
-                system, facs, rs, us, self.hw, self.U, self.T, nsteps, 0,
-                block, min(skip, nsteps))
-            # read a chunk's sums back only after the next chunk's host-side
-            # draws and launches: those then overlap this chunk on the card
-            # (reading them at once would leave the card idle meanwhile)
+                system, facs, None, us, self.hw, self.U, T_init, nsteps, 0,
+                block, min(skip, nsteps), noises=noises)
+            # read a chunk's sums back, and write its files, only after the
+            # next chunk's launches: those then overlap this chunk on the
+            # card (reading them at once would leave the card idle)
             pending.append((c0, c1, ic, sums, ok))
             while len(pending) > 1:
                 drain(pending.pop(0))
@@ -864,22 +1007,20 @@ class md:
                 first = finals.select(0)
         for item in pending:
             drain(item)
-        means = cur_sum / max(cur_cnt, 1)
-        self._write_kappa_files(ntraj, nb, means)
         self.state = first
-        return means
+        return cur_sum / max(cur_cnt, 1)
 
     # ---- output files ----
-    def _write_kappa_files(self, ntraj, nb, means):
-        """Per-trajectory kappa.T.bathI.runJ.dat files, the format the
-        calHF/calTC aggregators read."""
-        for jtraj in range(ntraj):
-            for ii in range(nb):
-                path = os.path.join(
-                    self.outdir, f"kappa.{self.T:g}.bath{ii}.run{jtraj}.dat")
-                with open(path, "w") as f:
-                    f.write("%i %f    %f \n" % (
-                        jtraj, self.T, means[jtraj, ii] * U.CURCOF))
+    def _write_kappa_files(self, means, lo: int = 0):
+        """Per-trajectory kappa.T.bathI.runJ.dat files of trajectories
+        lo, lo+1, ... (the rows of ``means``), the format the calHF/calTC
+        aggregators read."""
+        for jj, row in enumerate(means):
+            jtraj = lo + jj
+            for ii, m in enumerate(row):
+                _write_text(os.path.join(
+                    self.outdir, f"kappa.{self.T:g}.bath{ii}.run{jtraj}.dat"),
+                    "%i %f    %f \n" % (jtraj, self.T, m * U.CURCOF))
 
     def _write_traj(self, fh, ys, seg, ipie):
         """ani-format frames every ``nstep`` steps: element, position
@@ -934,22 +1075,20 @@ class md:
 
         if self.curs is not None:
             for ii in range(len(self.baths)):
-                with open(os.path.join(
-                        self.outdir,
-                        f"kappa.{self.T:g}.bath{ii}.run{j}.dat"), "w") as fk:
-                    fk.write("%i %f    %f \n" % (
+                _write_text(os.path.join(
+                    self.outdir, f"kappa.{self.T:g}.bath{ii}.run{j}.dat"),
+                    "%i %f    %f \n" % (
                         j, self.T,
                         float(np.mean(self.curs[:, ii])) * U.CURCOF))
 
         if self.saveq and "qs" in outputs and self.xyz is not None:
             ave = self.conv * outputs["qs"].mean(axis=0) + self.xyz
-            with open(os.path.join(
-                    self.outdir,
-                    f"avestructure.{self.T:g}.run{j}.dat"), "w") as f:
-                f.write(f"{len(self.els)}\naverage structure\n")
-                for ip, el in enumerate(self.els):
-                    f.write("%s    %s   %s   %s\n" % (
-                        el, ave[3 * ip], ave[3 * ip + 1], ave[3 * ip + 2]))
+            _write_text(os.path.join(
+                self.outdir, f"avestructure.{self.T:g}.run{j}.dat"),
+                f"{len(self.els)}\naverage structure\n" + "".join(
+                    "%s    %s   %s   %s\n" % (
+                        el, ave[3 * ip], ave[3 * ip + 1], ave[3 * ip + 2])
+                    for ip, el in enumerate(self.els)))
 
         keep = ("etot", "cur", "ps", "qs") + \
             (("fbaths", "f") if self.saveall else ())
@@ -957,13 +1096,14 @@ class md:
             k: outputs.get(k) for k in keep if k in outputs})
 
     def _write_power(self, j, power, prefix):
-        with open(os.path.join(
-                self.outdir, f"{prefix}.{self.T:g}.run{j}.dat"), "w") as f:
-            for ni in range(len(power)):
-                if self.hw is not None and \
-                        power[ni, 0] >= 1.5 * float(np.max(self.hw)):
-                    break
-                f.write("%f     %f \n" % (power[ni, 0], power[ni, 1]))
+        lines = []
+        for ni in range(len(power)):
+            if self.hw is not None and \
+                    power[ni, 0] >= 1.5 * float(np.max(self.hw)):
+                break
+            lines.append("%f     %f \n" % (power[ni, 0], power[ni, 1]))
+        _write_text(os.path.join(
+            self.outdir, f"{prefix}.{self.T:g}.run{j}.dat"), "".join(lines))
 
     def GetPower(self):
         if self.curs is None:

@@ -30,7 +30,7 @@ def build_neighbors(xyz, cutoff: float, max_nnei: Optional[int],
     if backend == "native":
         raise NotImplementedError(
             "build_neighbors: the native cell-list backend is not ported "
-            "(ROADMAP queue 1 item 7); use backend=\"numpy\"")
+            "(ROADMAP queue 1 item 5); use backend=\"numpy\"")
     if backend not in ("auto", "numpy"):
         raise ValueError(f"build_neighbors: unknown backend {backend!r}")
     x = np.asarray(xyz, dtype=float).reshape(-1, 3)

@@ -3,10 +3,16 @@
 Setup stays on the host in numpy float64: the half-spectrum PSD batch
 (``phonon_psd``) and its one-time eigendecomposition (``noise_factors``).
 Sampling runs on torch tensors with a leading trajectory dimension:
-draw x std, times the PSD eigenvectors, Hermitian mirror to the full
-spectrum, then ``fourier_w2t``. The Gaussian draw ``r`` is an argument
-of the sampler core, so tests feed the JAX package and the port the
-same numbers.
+draw x std, times the PSD eigenvectors (the half spectrum), then the
+Hermitian C2R transform ``hfft`` / (nmd dt), which equals the real part
+of ``fourier_w2t`` of the mirrored full spectrum at half the work. On the
+card the draw and the product are kernel K3 (``kernels.noise_synth``).
+
+Where the JAX package takes a ``jax.random`` key, the port takes a
+``draw``: either a standard-normal tensor of the factors' shape (the
+tests inject the numbers the JAX side drew) or a (seed, stream, index)
+triple of the port's Philox schedule (``ops.philox``), which gives other
+numbers than JAX's threefry.
 """
 
 from __future__ import annotations
@@ -15,8 +21,9 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch import units as U
+from sclmd_tpu_torch.ops import philox
 from sclmd_tpu_torch.ops.functions import (equ_spectrum, flinterp_np,
-                                           fourier_w2t, hermitianize)
+                                           hermitianize)
 
 
 def _check_even(nmd: int):
@@ -131,19 +138,223 @@ def mirror_halfspectrum(xi_pos: torch.Tensor, nmd: int,
     return torch.cat([xi_pos.narrow(dim, 0, hlen), neg], dim=dim)
 
 
+def halfspectrum_from_draw(x: torch.Tensor,
+                           evecs: torch.Tensor) -> torch.Tensor:
+    """Half spectrum xi(w) = U(w) x(w) of the scaled draw ``x`` (...,
+    hlen+1, nc): ``evecs`` one (nc, nc) matrix or an (hlen+1, nc, nc)
+    batch. Each trajectory's rows are summed the same way for any number
+    of trajectories, so chunked ensembles stay bitwise equal on the CPU:
+    one matrix folds into one product of (traj x hlen+1) rows, never
+    fewer than four for nmd >= 6 (below four the CPU BLAS takes another
+    path); a batch is one batched matrix-vector product per trajectory
+    (a broadcast product would copy the batch once per trajectory)."""
+    x = x.to(evecs.dtype)
+    if evecs.ndim == 2:
+        return (evecs @ x.unsqueeze(-1)).squeeze(-1)
+    rows = x.reshape((-1,) + x.shape[-2:])
+    return torch.stack([(evecs @ xt.unsqueeze(-1)).squeeze(-1)
+                        for xt in rows]).reshape(x.shape)
+
+
+def drop_edge_imag_(xi_pos: torch.Tensor) -> torch.Tensor:
+    """Zero, in place, the imaginary parts of the first and last rows
+    (w = 0 and nmd/2) of a half spectrum (..., hlen+1, nc): the real
+    series does not keep them, and cuFFT's C2R transform (on the card)
+    does not drop them. Returns ``xi_pos``."""
+    xi_pos[..., 0, :].imag.zero_()
+    xi_pos[..., -1, :].imag.zero_()
+    return xi_pos
+
+
+def series_from_halfspectrum(xi_pos: torch.Tensor, dt: float,
+                             nmd: int) -> torch.Tensor:
+    """Real (..., nmd, nc) series of the half spectrum (..., hlen+1, nc):
+    ``hfft`` / (nmd dt), the real part of ``fourier_w2t`` of
+    ``mirror_halfspectrum``. The imaginary parts of rows 0 and hlen must
+    be zero (``drop_edge_imag_``), as K3 writes them."""
+    _check_even(nmd)
+    return torch.fft.hfft(xi_pos, n=nmd, dim=-2).div_(nmd * dt).contiguous()
+
+
 def sample_noise_from_r(r: torch.Tensor, evecs: torch.Tensor,
                         std: torch.Tensor, dt: float,
                         nmd: int) -> torch.Tensor:
     """Real (..., nmd, nc) noise series from standard-normal draws ``r``
-    (..., hlen+1, nc): xi(w) = U(w) (r std), mirrored, then
-    ``fourier_w2t``. ``evecs`` is one (nc, nc) matrix (proportional
-    spectrum) or an (hlen+1, nc, nc) batch; leading dims of ``r`` are
-    trajectories."""
+    (..., hlen+1, nc): xi(w) = U(w) (r std), then the Hermitian C2R
+    transform. ``evecs`` is one (nc, nc) matrix (proportional spectrum) or
+    an (hlen+1, nc, nc) batch; leading dims of ``r`` are trajectories."""
     _check_even(nmd)
-    x = (r * std).to(evecs.dtype)
-    if evecs.ndim == 2:
-        xi_pos = x @ evecs.transpose(0, 1)
-    else:
-        xi_pos = torch.einsum("wij,...wj->...wi", evecs, x)
-    xi = mirror_halfspectrum(xi_pos, nmd, dim=-2)
-    return torch.real(fourier_w2t(xi, dt, dim=-2)).contiguous()
+    return series_from_halfspectrum(
+        drop_edge_imag_(halfspectrum_from_draw(r * std, evecs)), dt, nmd)
+
+
+def schedule_noise(evecs: torch.Tensor, std: torch.Tensor, seed: int,
+                   stream: int, lo: int, hi: int, dt: float,
+                   nmd: int) -> torch.Tensor:
+    """(hi-lo, nmd, nc) series of trajectories [lo, hi) of the schedule's
+    stream: kernel K3 and cuFFT on the card, the twin on the CPU."""
+    from sclmd_tpu_torch.kernels.noise_synth import noise_halfspectrum
+    _check_even(nmd)
+    xi = noise_halfspectrum(evecs, std, seed, stream, lo, hi)
+    return series_from_halfspectrum(xi, dt, nmd)
+
+
+def _normals(draw, shape, device) -> torch.Tensor:
+    """Standard normals of ``shape``: an injected tensor as it is, or a
+    (seed, stream, index) triple drawn from the Philox schedule (float64,
+    as the twin draws)."""
+    if torch.is_tensor(draw):
+        if tuple(draw.shape) != tuple(shape):
+            raise ValueError(f"draw of shape {tuple(draw.shape)}, expected "
+                             f"{tuple(shape)}")
+        return draw
+    seed, stream, index = draw
+    n = int(np.prod(shape))
+    return philox.normals(seed, stream, index, index + 1, n,
+                          device).reshape(shape)
+
+
+def _factor_tensors(evecs, std):
+    """(evecs, std) as tensors on std's device; host factors as
+    ``noise_factors`` gives them ship their single matrix when the
+    spectrum is proportional."""
+    std = torch.as_tensor(np.asarray(std)) if not torch.is_tensor(std) \
+        else std
+    ev = evecs if torch.is_tensor(evecs) else torch.as_tensor(
+        factor_matrix(evecs))
+    return ev.to(std.device), std
+
+
+def halfspectrum_freqs(dt: float, nmd: int, dtype=torch.float32,
+                       device="cpu") -> torch.Tensor:
+    """Positive-frequency grid w_i = i * dw, i = 0..nmd/2."""
+    _check_even(nmd)
+    dw = 2.0 * np.pi / dt / nmd
+    return dw * torch.arange(nmd // 2 + 1, dtype=dtype, device=device)
+
+
+def sample_noise(draw, evecs, std, dt: float, nmd: int) -> torch.Tensor:
+    """Real (nmd, nc) noise series of one trajectory from the factors
+    (``evecs`` as ``noise_factors`` gives them, or the single matrix of a
+    proportional spectrum)."""
+    _check_even(nmd)
+    ev, std = _factor_tensors(evecs, std)
+    r = _normals(draw, std.shape, std.device).to(std.dtype)
+    return sample_noise_from_r(r, ev, std, dt, nmd)
+
+
+def sample_noise_np(rng: np.random.Generator, evecs, std, dt: float,
+                    nmd: int) -> np.ndarray:
+    """Host NumPy sampler (float64): the JAX package's
+    ``sample_noise_np``, copied."""
+    _check_even(nmd)
+    evecs = np.asarray(evecs)
+    std = np.asarray(std, np.float64)
+    r = rng.standard_normal(std.shape) * std
+    xi_pos = np.einsum("wij,wj->wi", evecs.astype(np.complex128), r)
+    hlen = nmd // 2
+    neg = np.conjugate(xi_pos[1:hlen + 1][::-1])
+    xi = np.concatenate([xi_pos[:hlen], neg], axis=0)
+    return np.real(np.fft.fft(xi, axis=0) / (nmd * dt))
+
+
+def sample_from_psd(draw, psd) -> torch.Tensor:
+    """Frequency-domain noise xi(w) = U(w) (std(w) r(w)) from the PSD
+    batch (nw, nc, nc): r real standard normals, std the square roots of
+    the eigenvalues clipped at zero. The eigendecomposition runs on the
+    host in numpy float64, as the port's setup does (LAPACK's, the same
+    eigenvectors as the JAX package's ``eigh``; MKL's differ in phase)."""
+    psd_np = psd.detach().cpu().numpy() if torch.is_tensor(psd) \
+        else np.asarray(psd)
+    ev, evec = np.linalg.eigh(psd_np)
+    rdt = np.float64 if psd_np.dtype == np.complex128 else np.float32
+    std = torch.as_tensor(np.sqrt(np.clip(ev, 0.0, None)).astype(rdt))
+    r = _normals(draw, std.shape, "cpu").to(std.dtype)
+    return halfspectrum_from_draw(r * std, torch.as_tensor(evec))
+
+
+def synthesize(draw, psd, dt: float, nmd: int) -> torch.Tensor:
+    """Real (nmd, nc) series from the half-spectrum PSD batch."""
+    _check_even(nmd)
+    return series_from_halfspectrum(drop_edge_imag_(sample_from_psd(draw,
+                                                                    psd)),
+                                    dt, nmd)
+
+
+def enoise(draw, efric, exim, exip, bias, T, ecut, dt, nmd,
+           classical: bool = False, zpmotion: bool = True) -> torch.Tensor:
+    """Electron colored-noise series (nmd, nc)."""
+    rdt = np.asarray(efric).dtype
+    wl = halfspectrum_freqs(dt, nmd, dtype=torch.float64).numpy().astype(rdt)
+    psd = electron_psd(wl, efric, exim, exip, bias, T, ecut, classical,
+                       zpmotion, dt * nmd)
+    return synthesize(draw, psd, dt, nmd)
+
+
+def phnoise(draw, gamma, gwl, T, phcut, dt, nmd, classical: bool = False,
+            zpmotion: bool = True) -> torch.Tensor:
+    """Phonon colored-noise series (nmd, nc)."""
+    rdt = np.asarray(gamma).dtype
+    wl = halfspectrum_freqs(dt, nmd, dtype=torch.float64).numpy().astype(rdt)
+    psd = phonon_psd(wl, gamma, gwl, T, phcut, classical, zpmotion,
+                     dt * nmd)
+    return synthesize(draw, psd, dt, nmd)
+
+
+def enoisew(wl, efric, exim, exip, bias, T, ecut, classical: bool = False,
+            zpmotion: bool = True) -> np.ndarray:
+    """Electron-bath PSD on an arbitrary grid, no Dirac factor."""
+    return electron_psd(wl, efric, exim, exip, bias, T, ecut, classical,
+                        zpmotion, delta=1.0)
+
+
+def phnoisew(gamma, wl, T, phcut, classical: bool = False,
+             zpmotion: bool = True) -> np.ndarray:
+    """Scalar-gamma phonon noise spectrum equ(w) gamma(w)."""
+    return equ_spectrum(np.asarray(wl), phcut, T, classical, zpmotion) * \
+        np.asarray(gamma)
+
+
+def mf(f: torch.Tensor, cats, lens: int) -> torch.Tensor:
+    """Scatter a bath-local vector into the full-DOF vector."""
+    out = torch.zeros((lens,), dtype=f.dtype, device=f.device)
+    out[torch.as_tensor(np.asarray(cats), device=f.device)] = f
+    return out
+
+
+def sample_noise_window(draw, evecs, std, dt: float, nmd: int, t0: int,
+                        seg: int, fchunk: int = 2048) -> torch.Tensor:
+    """Rows [t0, t0+seg) of the series ``sample_noise`` gives for the same
+    draw, without the full (nmd, nc) series: the inverse transform on the
+    window's rows as a paired-frequency sum,
+
+        x_k = [Re xi_0 + (-1)^k Re xi_h
+               + 2 sum_{m=1}^{h-1} (Re xi_m cos(th k m) + Im xi_m sin(th k m))]
+              / (nmd dt),
+
+    th = 2 pi / nmd, h = nmd / 2, over frequency slices of ``fchunk``. The
+    phase k m mod nmd is exact: int64 products masked with nmd - 1, so
+    ``nmd`` must be a power of two. Plain torch (its kernel, K4, is still
+    to be written); leading dims of an injected draw are trajectories."""
+    _check_even(nmd)
+    if nmd & (nmd - 1):
+        raise ValueError(f"sample_noise_window needs power-of-two nmd "
+                         f"(got {nmd}) for exact phase wrapping")
+    hlen = nmd // 2
+    ev, std = _factor_tensors(evecs, std)
+    rdt = std.dtype
+    shape = tuple(draw.shape) if torch.is_tensor(draw) else tuple(std.shape)
+    r = _normals(draw, shape, std.device).to(rdt)
+    xi = halfspectrum_from_draw(r * std, ev)
+    xr, xim = xi.real.to(rdt), xi.imag.to(rdt)
+    ks = int(t0) + torch.arange(seg, dtype=torch.int64, device=std.device)
+    theta = 2.0 * np.pi / nmd
+    sign = torch.where(ks % 2 == 0, 1.0, -1.0).to(rdt)
+    acc = xr[..., :1, :] + sign[:, None] * xr[..., hlen:hlen + 1, :]
+    for m0 in range(1, hlen, fchunk):
+        m1 = min(m0 + fchunk, hlen)
+        ms = torch.arange(m0, m1, dtype=torch.int64, device=std.device)
+        ph = theta * ((ks[:, None] * ms[None, :]) & (nmd - 1)).to(rdt)
+        acc = acc + 2.0 * (torch.cos(ph) @ xr[..., m0:m1, :]
+                           + torch.sin(ph) @ xim[..., m0:m1, :])
+    return acc / (nmd * dt)

@@ -4,15 +4,15 @@ shapes, for comparing two trees of the port on one card.
     python -m sclmd_tpu_torch.tools.blocked_bench [--label NAME]
         [--ntraj 256 512] [--e2e 256 1024]
 
-Needs a CUDA card. Uses only what every tree of the port has since its
-start (``tools.primary``, ``kernels.gle_block.gle_block_cuda``,
-``kernels.block_corr.block_corr_freq_cuda``, ``md.md.RunEnsemble``), so
-the same file times an older checkout: run it from that checkout's root
-with ``PYTHONPATH=.`` and the file's path. Prints one JSON line: the
+Needs a CUDA card. Measures the package it is imported from, so two
+trees that both have ``tools.noise_bench`` are compared by running this
+file from the root of each checkout (``PYTHONPATH=.`` and the file's
+path). Prints one JSON line: the
 card's name and power limit, K1 milliseconds per 256-step block and K2
 milliseconds per call at each ``--ntraj`` (CUDA events, mean of
 repetitions after a warm-up, on the operands chip_smoke.py checks), the
-einsum that computes K2's function, and the host wall time and
+einsum that computes K2's function, the chunk's draws and noise synthesis
+(``tools.noise_bench.noise_times``), and the host wall time and
 trajectory-steps per second of ``RunEnsemble`` at each ``--e2e`` count
 (nsteps 2048, block 256, after one warm-up call of each size).
 """
@@ -25,18 +25,7 @@ import time
 
 import torch
 
-
-def _ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+from sclmd_tpu_torch.tools.noise_bench import event_ms, noise_times
 
 
 def main(argv=None):
@@ -64,10 +53,11 @@ def main(argv=None):
         _, ops, corr = block_operands(r, n, 7, gen)
         khat, hhat = corr[0]
         out["kernels"][n] = {
-            "k1_ms_per_block": _ms(lambda: K1.gle_block_cuda(*ops), 3),
-            "k2_ms": _ms(lambda: K2.block_corr_freq_cuda(khat, hhat), 20),
-            "einsum_ms": _ms(lambda: torch.einsum(
-                "fab,tfb->tfa", khat, torch.conj(hhat)), 20)}
+            "k1_ms_per_block": event_ms(lambda: K1.gle_block_cuda(*ops), 3),
+            "k2_ms": event_ms(lambda: K2.block_corr_freq_cuda(khat, hhat), 20),
+            "einsum_ms": event_ms(lambda: torch.einsum(
+                "fab,tfb->tfa", khat, torch.conj(hhat)), 20),
+            "noise": noise_times(r, n)}
         del ops, corr, khat, hhat
     r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
     for n in args.e2e:

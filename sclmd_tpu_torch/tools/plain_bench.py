@@ -33,9 +33,11 @@ and one JSON line:
 * ``run_steps_per_s``: three ``md.Run`` calls on the primary junction (no
   block, 2 runs x 2048 steps in two segments, power spectra on), runner
   set-up outside the window, after a warm-up call;
+* ``flagship_noise``: one chunk's draws and noise synthesis on the
+  flagship at 128 and 1024 trajectories (``tools.noise_bench.noise_times``);
 * ``flagship_traj_steps_per_s``: ``RunEnsemble(block=None)`` on the
   harmonic flagship at 128 and 1024 trajectories, five calls each after a
-  warm-up (the host's draws and kappa files spread them).
+  warm-up.
 
 ``--workload flagship_mb`` measures the many-body flagship instead (the
 C/H force driver through ``AddPotential``):
@@ -72,6 +74,8 @@ import time
 
 import numpy as np
 import torch
+
+from sclmd_tpu_torch.tools.noise_bench import noise_times
 
 STAGES = ("pred", "corr", "last")
 
@@ -367,6 +371,7 @@ def main(argv=None):
             res["run_steps_per_s"].append(
                 2 * NMD / (time.perf_counter() - t0))
 
+        res["flagship_noise"] = {n: noise_times(fr, n) for n in (128, 1024)}
         res["flagship_traj_steps_per_s"] = ensemble_rates(fr, F.NMD)
     print(json.dumps(res), flush=True)
 

@@ -52,17 +52,17 @@ def block_operands(r, ntraj: int, seed: int, gen: torch.Generator):
     Returns (system, args of ``gle_block``, per-bath (khat, hhat))."""
     from sclmd_tpu_torch.kernels import gle_block as K1
     from sclmd_tpu_torch.md import _next_pow2, thermal_init
-    from sclmd_tpu_torch.ops.noise import sample_noise_from_r
     from sclmd_tpu_torch.parallel.ensemble import bath_factors, draw_chunk
 
     dev = r.device
     system = r._build_system()
     facs = bath_factors(r.baths, dev)
-    rs, us = draw_chunk(facs, seed, 0, ntraj, NPH, dev, torch.float32)
+    noises, us = draw_chunk(facs, seed, 0, ntraj, NPH, dev, torch.float32,
+                            DT, NMD)
     st = thermal_init(us, system, r.hw, r.U, T)
     nfft = _next_pow2(ML + BLOCK + 2)
     ops, corr = [], []
-    for b, (ev, std), rr in zip(r.baths, facs, rs):
+    for b, nz in zip(r.baths, noises):
         khat = torch.fft.rfft(torch.nn.functional.pad(
             b.kernel, (0, 0, 0, 0, 0, nfft - ML)), dim=0).contiguous()
         hist = 0.05 * torch.randn((ntraj, ML - 1, NC), device=dev,
@@ -70,7 +70,7 @@ def block_operands(r, ntraj: int, seed: int, gen: torch.Generator):
         corr.append((khat, torch.fft.rfft(hist, n=nfft, dim=1).contiguous()))
         kin = b.block_tap_kernel(BLOCK)
         ops.append(K1.BathOperands(
-            sample_noise_from_r(rr, ev, std, DT, NMD),
+            nz,
             b.block_corr(hist, BLOCK, khat, nfft).contiguous(),
             kin, K1.tap_major(kin, BLOCK), b.kernel[0].contiguous(), b.cols,
             torch.as_tensor(b.cids, dtype=torch.int32, device=dev)))

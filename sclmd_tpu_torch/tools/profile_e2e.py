@@ -14,7 +14,8 @@ step (K6, K7; ``--ntraj`` is ignored).
 Needs a CUDA card. For each trajectory count: one warm-up call, one
 untraced call timed on the host clock (``torch.cuda.synchronize`` inside
 the window), then one call under ``torch.profiler`` with a span around
-each layer (draws, noise synthesis, thermal init, the integrators, the
+each layer (draws; within them noise synthesis, K3's launch or twin
+``noise_synth`` and K3b's ``init_draws``; thermal init, the integrators, the
 potential force, K1 with its near- and far-tap launches, K2, K5, K6, K7, the
 output files). From the trace it
 reports:
@@ -24,7 +25,9 @@ reports:
   on the card, and ``idle_share`` = 1 - busy / traced wall;
 * per span: host time (the span on the CPU) and device time (the union
   of the device work launched inside it);
-* the ten device kernels with the most time.
+* the ten device kernels with the most time;
+* ``kappa_writers`` (ensemble workloads): the call's kappa files written
+  in turns by the runner's raw-syscall writer and by buffered ``open()``.
 
 Writes ``summary_<workload>.json`` and one Chrome trace per count to
 ``--out`` and
@@ -39,6 +42,7 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 SPANS = {
@@ -46,7 +50,10 @@ SPANS = {
     # profiler runs
     "draw_chunk": ("sclmd_tpu_torch.parallel.ensemble", "draw_chunk"),
     "noise_synthesis": ("sclmd_tpu_torch.parallel.ensemble",
-                        "sample_noise_from_r"),
+                        "schedule_noise"),
+    "noise_synth": ("sclmd_tpu_torch.kernels.noise_synth",
+                    "noise_halfspectrum"),
+    "init_draws": ("sclmd_tpu_torch.parallel.ensemble", "init_draws"),
     "thermal_init": ("sclmd_tpu_torch.parallel.ensemble", "thermal_init"),
     "run_segment_blocked": ("sclmd_tpu_torch.parallel.ensemble",
                             "run_segment_blocked"),
@@ -158,6 +165,56 @@ def workload(name: str, dev):
     return run, lambda n: NMD
 
 
+def kappa_writers_ms(ntraj: int, nb: int = 2, reps: int = 3) -> dict:
+    """Milliseconds to write the ``ntraj`` x ``nb`` kappa files of one
+    ``RunEnsemble`` call, in turns: by the buffered ``open()`` the runner
+    used before (``open_ms``), by its raw ``os.open``/``os.write`` writer
+    (``md._write_text``) into a fresh directory (``raw_ms``) and over the
+    files of the call before (``raw_again_ms``, as a runner's repeated
+    calls do), and by that writer on 8 threads (``raw_8threads_ms``; the
+    syscalls release the interpreter lock). The same bytes each time."""
+    from sclmd_tpu_torch import units
+    from sclmd_tpu_torch.md import _write_text
+
+    means = np.random.default_rng(0).normal(size=(ntraj, nb)) * 1e-6
+
+    def line(j, i):
+        return "%i %f    %f \n" % (j, 300.0, means[j, i] * units.CURCOF)
+
+    def buffered(d):
+        for j in range(ntraj):
+            for i in range(nb):
+                with open(os.path.join(d, f"kappa.300.bath{i}.run{j}.dat"),
+                          "w") as f:
+                    f.write(line(j, i))
+
+    def raw(d):
+        for j in range(ntraj):
+            for i in range(nb):
+                _write_text(os.path.join(
+                    d, f"kappa.300.bath{i}.run{j}.dat"), line(j, i))
+
+    def threaded(d):
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda j: [_write_text(os.path.join(
+                d, f"kappa.300.bath{i}.run{j}.dat"), line(j, i))
+                for i in range(nb)], range(ntraj)))
+
+    out = {"files": ntraj * nb, "open_ms": [], "raw_ms": [],
+           "raw_again_ms": [], "raw_8threads_ms": []}
+    for _ in range(reps):
+        again = tempfile.mkdtemp()
+        raw(again)
+        for key, fn in (("open_ms", buffered), ("raw_ms", raw),
+                        ("raw_again_ms", raw), ("raw_8threads_ms", threaded)):
+            d = again if key == "raw_again_ms" else tempfile.mkdtemp()
+            t0 = time.perf_counter()
+            fn(d)
+            out[key].append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="primary",
@@ -200,6 +257,8 @@ def main(argv=None):
         summary[n] = {"wall_s": {"untraced": walls[0], "traced": walls[1]},
                       "traj_steps_per_s_untraced": steps(n) / walls[0],
                       **summarise(path, walls[1])}
+        if args.workload != "run":
+            summary[n]["kappa_writers"] = kappa_writers_ms(n)
         print(json.dumps({"ntraj": n, **summary[n]}), flush=True)
     with open(os.path.join(args.out, f"summary_{args.workload}.json"),
               "w") as f:

@@ -118,7 +118,7 @@ def test_from_jax_bath_roundtrip():
 
 def test_lead_block_mode_not_ported():
     k = np.eye(2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         TB.phbath(300.0, range(2), 0.3, 32, 0.4, 64, ml=8, K00=k, K01=k,
                   V01=k, device="cpu")
 

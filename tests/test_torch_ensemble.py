@@ -23,6 +23,7 @@ from sclmd_tpu.ops import noise as JN
 
 from sclmd_tpu_torch import baths as TB
 from sclmd_tpu_torch import md as TMD
+from sclmd_tpu_torch.ops import noise as TN
 from sclmd_tpu_torch.parallel import ensemble as TE
 
 torch.set_num_threads(2)
@@ -89,8 +90,9 @@ def test_fused_chunk_matches_jax():
 
 
 def test_chunked_ensemble_is_bitwise_unchunked(tmp_path):
-    """Draws come from (seed, stream, trajectory)-keyed generators, so
-    chunks of 2 and 4 (ragged) reproduce the single batch exactly."""
+    """Draws come from the (seed, stream, trajectory)-keyed Philox
+    schedule, so chunks of 2 and 4 (ragged) reproduce the single batch
+    exactly."""
     means = {}
     for chunk in (6, 2, 4):
         d = tmp_path / f"c{chunk}"
@@ -102,13 +104,27 @@ def test_chunked_ensemble_is_bitwise_unchunked(tmp_path):
 
 
 def test_draw_schedule_windows():
+    """The Philox schedule: windows of trajectories [0, 5) and [3, 5) draw
+    bitwise the same noise series and phases; streams differ by bath and
+    seeds differ; the twin's noise is the schedule's normals through
+    ``sample_noise_from_r``."""
+    from sclmd_tpu_torch.ops import philox
+    from sclmd_tpu_torch.ops.noise import sample_noise_from_r
     facs = TE.bath_factors(_torch_runner("unused").baths, "cpu")
-    rs, us = TE.draw_chunk(facs, 11, 0, 5, NPH, "cpu", torch.float64)
-    rs2, us2 = TE.draw_chunk(facs, 11, 3, 5, NPH, "cpu", torch.float64)
+    rs, us = TE.draw_chunk(facs, 11, 0, 5, NPH, "cpu", torch.float64, DT,
+                           NMD)
+    rs2, us2 = TE.draw_chunk(facs, 11, 3, 5, NPH, "cpu", torch.float64, DT,
+                             NMD)
     assert torch.equal(rs[1][3:], rs2[1]) and torch.equal(us[3:], us2)
     assert not torch.equal(rs[0], rs[1])        # streams differ by bath
     assert not torch.equal(TE.draw_chunk(facs, 12, 0, 5, None, "cpu",
-                                         torch.float64)[0][0], rs[0])
+                                         torch.float64, DT, NMD)[0][0],
+                           rs[0])
+    assert torch.equal(us, philox.uniforms(11, len(facs), 0, 5, NPH,
+                                           dtype=torch.float64))
+    ev, std = facs[1]
+    z = philox.normals(11, 1, 0, 5, std.numel()).reshape((5,) + std.shape)
+    assert torch.equal(rs[1], sample_noise_from_r(z, ev, std, DT, NMD))
 
 
 def test_ensemble_states_windows():
@@ -146,6 +162,25 @@ def test_run_ensemble_kappa_files_match_jax(tmp_path):
         float(ft[2])
 
 
+def test_kappa_files_are_the_bytes_of_buffered_open(tmp_path):
+    """The raw-syscall writer leaves the bytes ``open(path, "w")`` would
+    write: 3 trajectories x 2 baths."""
+    (tmp_path / "a").mkdir()
+    r = _torch_runner(tmp_path / "a")
+    means = r.RunEnsemble(3)
+    names = sorted(os.listdir(tmp_path / "a"))
+    assert len(names) == 6
+    (tmp_path / "b").mkdir()
+    for j in range(3):
+        for i in range(2):
+            name = f"kappa.300.bath{i}.run{j}.dat"
+            with open(tmp_path / "b" / name, "w") as f:
+                f.write("%i %f    %f \n" % (j, r.T,
+                                             means[j, i] * TMD.U.CURCOF))
+            assert (tmp_path / "a" / name).read_bytes() == \
+                (tmp_path / "b" / name).read_bytes()
+
+
 def test_auto_chunk_budget():
     system = _torch_runner("unused")._build_system()
     per = TE.estimate_traj_bytes(system, NMD, 16)
@@ -158,8 +193,8 @@ def test_auto_chunk_budget():
 
 def test_unported_branches_raise(tmp_path):
     r = _torch_runner(tmp_path)
-    for kw in (dict(checkpoint=True), dict(npie=2), dict(steady_init=True)):
-        with pytest.raises(NotImplementedError, match="item 4"):
+    for kw in (dict(checkpoint=True), dict(npie=2)):
+        with pytest.raises(NotImplementedError, match="item 2"):
             r.RunEnsemble(2, **kw)
 
 
@@ -277,11 +312,13 @@ def test_run_ensemble_plain_matches_jax(tmp_path, monkeypatch):
         _, ys = JMD.run_segment(sys_j, st, nsteps)
         want.append(np.asarray(ys["cur"])[skip:].mean(axis=0))
 
-    def injected(facs, seed, lo, hi, nm, device, dtype):
+    def injected(facs, seed, lo, hi, nm, device, dtype, dt, nmd):
         rs = [torch.as_tensor(np.stack([
             np.random.default_rng(s).standard_normal(tuple(std.shape))
             for s in seeds[i][lo:hi]])) for i, (_, std) in enumerate(facs)]
-        return rs, torch.as_tensor(us[lo:hi])
+        return ([TN.sample_noise_from_r(r, ev, std, dt, nmd)
+                 for r, (ev, std) in zip(rs, facs)],
+                torch.as_tensor(us[lo:hi]))
 
     monkeypatch.setattr(TE, "draw_chunk", injected)
     r = _torch_runner(tmp_path)

@@ -788,3 +788,119 @@ def test_run_segment_with_ch_driver_card_against_cpu(cuda):
         out.append((fin.p, fin.q, ys["cur"], ys["etot"]))
     for a, b in zip(*out):
         assert _rel(a, b) < 1e-4
+
+
+# --- K3 and K3b: noise synthesis with the in-kernel Philox draw -------------
+def _noise_factors(kind, nc, nmd, device, seed=0):
+    """Complex64 factors of a random PSD: one matrix (``prop``, nc >= 8)
+    or the per-frequency batch, and float32 std."""
+    from sclmd_tpu_torch.ops import noise as TN
+    rng = np.random.default_rng(seed)
+    h = nmd // 2 + 1
+    if kind == "prop":
+        m = rng.normal(size=(nc, nc)) + 1j * rng.normal(size=(nc, nc))
+        psd = (np.abs(rng.normal(size=h)) + 0.1)[:, None, None] * \
+            (m @ m.conj().T + nc * np.eye(nc))[None]
+    else:
+        psd = np.stack([(lambda m: m @ m.conj().T + nc * np.eye(nc))(
+            rng.normal(size=(nc, nc)) + 1j * rng.normal(size=(nc, nc)))
+            for _ in range(h)])
+    ev, std = TN.noise_factors(psd, dtype=np.float32)
+    return (torch.as_tensor(TN.factor_matrix(ev), device=device),
+            torch.as_tensor(std, device=device))
+
+
+@pytest.mark.parametrize("kind,nc,nmd", [("prop", 150, 256), ("batch", 90, 128),
+                                         ("batch", 5, 64), ("prop", 200, 64)])
+@pytest.mark.parametrize("lo,hi", [(0, 1), (3, 40), (0, 130)])
+def test_noise_synth_matches_twin(cuda, kind, nc, nmd, lo, hi):
+    """K3 against its twin (the same Philox integers, float64 Box-Muller
+    and product, on the card): the flagship's single matrix (nc 150), the
+    primary's batch (nc 90), a narrow bath, and nc 200, whose matrix does
+    not fit in shared memory beside the draws (read from global memory);
+    windows that leave a trajectory tile ragged."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    ev, std = _noise_factors(kind, nc, nmd, cuda)
+    plan = K3.launch_plan(nc, hi - lo, nmd // 2 + 1, kind == "batch", 132)
+    assert plan["smem_u"] == (nc < 160)
+    before = K3.launches
+    got = K3.noise_halfspectrum(ev, std, 7, 1, lo, hi)
+    draw = K3.noise_halfspectrum_cuda(ev, std, 7, 1, lo, hi, draw_only=True)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 2
+    want_draw = K3.draw_plain(std.double(), 7, 1, lo, hi)
+    assert _rel(draw, want_draw) < 1e-6
+    want = K3.halfspectrum_plain(ev.to(torch.complex128), std.double(), 7, 1,
+                                 lo, hi)
+    assert _rel(got, want) < 1e-5
+    again = K3.noise_halfspectrum(ev, std, 7, 1, lo, hi)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("groups,ci",
+                         [(1, 32), (3, 64), (8, 16), (7, 90)])
+def test_noise_synth_same_bits_at_every_launch_shape(cuda, groups, ci):
+    """Only the work-to-thread map changes with the launch shape: every
+    shape writes the same bits, and a window of a chunk is bitwise the
+    chunk's rows."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    ev, std = _noise_factors("batch", 90, 128, cuda)
+    ref = K3.noise_halfspectrum(ev, std, 3, 0, 0, 70)
+    xs = 4 * groups * K3.R * 90
+    plan = {"groups": groups, "ci": ci, "grid": 65, "smem_u": True,
+            "smem_bytes": xs + 8 * 90 * 90}
+    got = K3.noise_halfspectrum_cuda(ev, std, 3, 0, 0, 70, plan=plan)
+    assert torch.equal(got, ref)
+    assert torch.equal(K3.noise_halfspectrum(ev, std, 3, 0, 20, 33),
+                       ref[20:33])
+
+
+def test_noise_series_chunk_invariant(cuda):
+    """A trajectory's series (K3, then cuFFT's C2R) is bitwise the same
+    from a chunk of 256 and one of 64, and across two calls."""
+    from sclmd_tpu_torch.ops.noise import schedule_noise
+    ev, std = _noise_factors("prop", 150, 1024, cuda)
+    a = schedule_noise(ev, std, 9, 1, 0, 256, 0.38, 1024)
+    b = schedule_noise(ev, std, 9, 1, 192, 256, 0.38, 1024)
+    assert torch.equal(a[192:], b)
+    assert torch.equal(a, schedule_noise(ev, std, 9, 1, 0, 256, 0.38, 1024))
+
+
+def test_init_draw_matches_twin_bitwise(cuda):
+    """K3b's uniforms are exact functions of the Philox words."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.ops import philox
+    before = K3.launches_init
+    got = K3.init_uniforms(11, 2, 5, 1029, 603, cuda, torch.float32)
+    assert K3.launches_init == before + 1
+    want = philox.uniforms(11, 2, 5, 1029, 603)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_noise_synth_refuses_float64(cuda):
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    ev, std = _noise_factors("batch", 5, 32, cuda)
+    with pytest.raises(TypeError, match="float64"):
+        K3.noise_halfspectrum(ev.to(torch.complex128), std.double(), 1, 0,
+                              0, 4)
+    with pytest.raises(TypeError, match="float64"):
+        K3.init_uniforms(1, 2, 0, 4, 9, cuda, torch.float64)
+
+
+@pytest.mark.parametrize("kind,nc", [("batch", 90), ("prop", 150)])
+def test_noise_series_is_the_mirrored_spectrums_transform(cuda, kind, nc):
+    """K3 and cuFFT's C2R transform give the real part of the forward FFT
+    of the mirrored spectrum (the reference's definition), complex
+    eigenvectors included: the edge rows' imaginary parts must not reach
+    the series."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.ops import noise as TN
+    from sclmd_tpu_torch.ops.functions import fourier_w2t
+    nmd, dt = 256, 0.38
+    ev, std = _noise_factors(kind, nc, nmd, cuda, seed=4)
+    got = TN.schedule_noise(ev, std, 2, 0, 0, 16, dt, nmd)
+    xi = TN.halfspectrum_from_draw(K3.draw_plain(std.double(), 2, 0, 0, 16),
+                                   ev.to(torch.complex128))
+    want = torch.real(fourier_w2t(TN.mirror_halfspectrum(xi, nmd), dt,
+                                  dim=-2))
+    assert _rel(got, want) < 1e-5
