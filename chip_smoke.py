@@ -31,11 +31,16 @@ not 0 and no result line is printed):
    with the profiler's device duration (``device_ms``) beside the event
    time, which for so short a kernel is the host's time to enqueue it;
    K5 at each chunk size of phase 13, with its float32 twin's time;
-   K3 at the chunk shapes of phases 5 and 10, with its twin, the library
-   composition ``torch.randn`` + ``torch.matmul``/``torch.einsum`` + the
-   same ``hfft``, and K3 with that ``hfft``; K3b with its twin and
-   ``torch.rand``; with the least time the card could take for each
-   (``bound_ms``);
+   K3 at every chunk shape of phases 5, 10 and 15 (and phase 16's other
+   cases) by events and by the profiler's device time, with its twin,
+   the C2R stage on its output (one cuFFT plan and the hand transpose
+   ``noise_transpose``, also timed alone against torch's transpose), the
+   whole ``schedule_noise``, and the library composition ``torch.randn``
+   + ``torch.matmul``/``torch.einsum`` + ``hfft``; K3b at each thermal
+   start by device and event time, with its twin, the composition
+   ``torch.rand`` + the same formula, and the whole start (K3b and the
+   product); with the least time the card could take for each
+   (``bound_ms``; K3's products as 3xTF32 on the tensor cores);
 8. K6 ``conv_tails`` and K7 ``bath_force`` against their twins: K6 at
    the primary shapes for one trajectory and a ragged batch of 37; K7
    on the primary phonon baths with K6's tails at one trajectory and at
@@ -82,15 +87,20 @@ not 0 and no result line is printed):
    same Philox integers; float64 Box-Muller and product on the card) at
    the primary junction's factors (one matrix, nc 90, nmd 2048), the
    flagship's (one matrix, nc 150, nmd 1024), the sheet's (one matrix,
-   nc 48, nmd 1024) and a per-frequency batch of the primary's widths,
-   at every chunk shape of phases 5, 10 and 15 and at md.Run's
-   one-trajectory window of phase 9: the scaled draw within 1e-6 of its
-   largest value
-   (``draw_only``), the series within RTOL of its largest, K3b's
-   uniforms bitwise, bitwise repeats; one trajectory's series bitwise
-   the same from a chunk of 256 and one of 64; the sample variance and
-   lag-1 autocorrelation of a 1024-trajectory draw within 5 standard
-   errors of the values the factors give;
+   nc 48, nmd 1024), a per-frequency batch of the primary's widths and
+   a random proportional spectrum of nc 37 (padded to 40), at every
+   chunk shape of phases 5, 10 and 15 and at md.Run's one-trajectory
+   window of phase 9: the scaled draw within 1e-6 of its largest value
+   (``draw_only``), the folded half spectrum and its series within RTOL
+   of their largest, the edge rows real, bitwise repeats and the same
+   bits at every launch shape the plan allows, ``noise_transpose``
+   bitwise its twin; K3b's uniforms bitwise,
+   its amplitudes within 1e-6 of the float64 twin's, the start (K3b and
+   the product) within RTOL of ``thermal_init`` on the same uniforms;
+   one trajectory's series bitwise the same from a chunk of 256 and one
+   of 64; the sample variance and lag-1 autocorrelation of a
+   1024-trajectory draw within 5 standard errors of the values the
+   factors give;
 17. the correctness gate: the MD-vs-NEGF thermal conductance of the
    harmonic flagship (``antithetic_run`` with the periodic warm start,
    256 trajectories, nmd 2^14, T 300 K, delta T 10 %, seed 11, float32)
@@ -204,7 +214,8 @@ class GeneratorCount:
 
 def k3_counts():
     from sclmd_tpu_torch.kernels import noise_synth as K3
-    return {"noise_synth": K3.launches, "init_draw": K3.launches_init}
+    return {"noise_synth": K3.launches, "init_draw": K3.launches_init,
+            "noise_transpose": K3.launches_transpose}
 
 
 def reset_k3():
@@ -220,6 +231,7 @@ def main():
     from sclmd_tpu_torch.kernels import block_corr as K2
     from sclmd_tpu_torch.kernels import build
     from sclmd_tpu_torch.kernels import gle_block as K1
+    from sclmd_tpu_torch.md import thermal_init
     from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
     from sclmd_tpu_torch.tools.primary import (BLOCK, NC, NMD, NPH, T,
                                                block_operands, chunk_sizes,
@@ -323,7 +335,8 @@ def main():
     assert min(launches.values()) > 0, launches
     nchunks = sum(len(chunk_sizes(r._build_system(), n)) for n in SIZES)
     assert launches["noise_synth"] == 2 * nchunks and \
-        launches["init_draw"] == nchunks, launches
+        launches["init_draw"] == nchunks and \
+        launches["noise_transpose"] == 2 * nchunks, launches
     assert gens.n == 0, f"{gens.n} torch.Generator made on the main path"
     nfiles = len([f for f in os.listdir(outdir) if f.startswith("kappa.")])
     assert nfiles == max(SIZES) * 2, nfiles
@@ -337,11 +350,13 @@ def main():
     out = []
     for dtype, device in ((torch.float32, dev), (torch.float64, "cpu")):
         rr = primary_runner(dtype, device, tempfile.mkdtemp())
+        system = rr._build_system()
         out.append(fused_chunk(
-            rr._build_system(), bath_factors(rr.baths, device),
+            system, bath_factors(rr.baths, device),
             [torch.as_tensor(x, dtype=dtype, device=device) for x in rs_np],
-            torch.as_tensor(us_np, dtype=dtype, device=device),
-            rr.hw, rr.U, T, 512, 0, BLOCK, 128))
+            512, 0, BLOCK, 128, states=thermal_init(
+                torch.as_tensor(us_np, dtype=dtype, device=device), system,
+                rr.hw, rr.U, T)))
         assert bool(out[-1][2])
     (fg, sg, _), (fc, sc, _) = out
     cur_rel = rel_err(sg, sc)[0]
@@ -399,6 +414,8 @@ def main():
     # largest (the widest thermal start)
     k3_t = times["noise_synth"][f"primary_{shapes[0]}"]
     k3b_t = times["init_draw"]["flagship_1024"]
+    # the series' layout kernel at the flagship's largest chunk
+    tr_t = times["noise_synth"]["flagship_1024"]["transpose"]
     main_runs = [launches, run_launches, ens_launches, mb_launches,
                  k8["launches"]]
 
@@ -441,6 +458,10 @@ def main():
             "sclmd_tpu/md.py:120",
             sum(c["init_draw"] for c in main_runs), k3_abs["init_draw"],
             k3b_t),
+        row("noise_transpose", "sclmd_tpu_torch/csrc/noise_synth.cu",
+            "sclmd_tpu/ops/noise.py:205",
+            sum(c["noise_transpose"] for c in main_runs),
+            k3_abs["noise_transpose"], tr_t),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -776,7 +797,8 @@ def phase_run(dev):
     nsteps = 2 * NMD
     # two runs of two baths' noise, one thermal start
     assert counts == {"conv_tails": nsteps, "bath_force": 3 * nsteps,
-                      "noise_synth": 4, "init_draw": 1}, counts
+                      "noise_synth": 4, "init_draw": 1,
+                      "noise_transpose": 4}, counts
     assert gens.n == 0, gens.n
     names = set(os.listdir(outdir))
     for j in (0, 1):
@@ -830,7 +852,8 @@ def phase_flagship(dev):
     nchunks = sum(len(F.chunk_sizes(r._build_system(), n))
                   for n in FLAG_SIZES)
     assert launches == 3 * F.NMD * nchunks, launches
-    assert k3 == {"noise_synth": 2 * nchunks, "init_draw": nchunks}, k3
+    assert k3 == {"noise_synth": 2 * nchunks, "init_draw": nchunks,
+                  "noise_transpose": 2 * nchunks}, k3
     # common random numbers: both runners draw the same numbers, so the
     # half-difference keeps the current driven by the temperature
     # difference and cancels the fluctuations the two runs share
@@ -875,10 +898,11 @@ def phase_card_vs_cpu(dev):
         fin, ys = run_segment(system, st, 512, t0=0)
         out["run"].append((fin.p, fin.q, ys["cur"], ys["etot"]))
         fr = F.flagship_runner(dtype, device, tempfile.mkdtemp())
+        fsys = fr._build_system()
         fin, sums, ok = fused_chunk(
-            fr._build_system(), bath_factors(fr.baths, device),
-            [tens(x) for x in rs_flag], tens(u_flag), fr.hw, fr.U, F.T,
-            512, 0, None, 128)
+            fsys, bath_factors(fr.baths, device),
+            [tens(x) for x in rs_flag], 512, 0, None, 128,
+            states=thermal_init(tens(u_flag), fsys, fr.hw, fr.U, F.T))
         assert bool(ok)
         out["flagship"].append((fin.p, fin.q, sums))
     errs = {name: max(rel_err(a, b)[0] for a, b in zip(*pair))
@@ -1011,7 +1035,8 @@ def phase_many_body(dev):
     assert launches == {"ch_force": 2 * F.NMD * nchunks,
                         "bath_force": 3 * F.NMD * nchunks,
                         "noise_synth": 2 * nchunks,
-                        "init_draw": nchunks}, launches
+                        "init_draw": nchunks,
+                        "noise_transpose": 2 * nchunks}, launches
     n = max(FLAG_SIZES)
     j = (fwd[n] - rev[n]) / 2             # common random numbers
     jl, jr = float(j[:, 0].mean()), float(j[:, 1].mean())
@@ -1026,6 +1051,7 @@ def phase_many_body(dev):
 def phase_many_body_card_vs_cpu(dev, nsteps=48):
     """Phase 14: a many-body flagship chunk on the card and on the CPU
     (float64), the same injected draws."""
+    from sclmd_tpu_torch.md import thermal_init
     from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
     from sclmd_tpu_torch.tools import flagship as F
 
@@ -1037,11 +1063,13 @@ def phase_many_body_card_vs_cpu(dev, nsteps=48):
     for dtype, device in ((torch.float32, dev), (torch.float64, "cpu")):
         fr = F.flagship_runner(dtype, device, tempfile.mkdtemp(),
                                many_body=True)
+        system = fr._build_system()
         fin, sums, ok = fused_chunk(
-            fr._build_system(), bath_factors(fr.baths, device),
+            system, bath_factors(fr.baths, device),
             [torch.as_tensor(x, dtype=dtype, device=device) for x in rs],
-            torch.as_tensor(us, dtype=dtype, device=device), fr.hw, fr.U,
-            F.T, nsteps, 0, None, nsteps // 4)
+            nsteps, 0, None, nsteps // 4, states=thermal_init(
+                torch.as_tensor(us, dtype=dtype, device=device), system,
+                fr.hw, fr.U, F.T))
         assert bool(ok)
         out.append((fin.p, fin.q, sums))
     errs = [rel_err(a, b)[0] for a, b in zip(*out)]
@@ -1163,7 +1191,8 @@ def phase_tersoff_sheet(dev, nsteps=48):
     k3 = k3_counts()
     # the sheet starts at rest: noise for its two baths, no phases
     nchunks = len(chunk_sizes(r._build_system(), ntraj))
-    assert k3 == {"noise_synth": 2 * nchunks, "init_draw": 0}, k3
+    assert k3 == {"noise_synth": 2 * nchunks, "init_draw": 0,
+                  "noise_transpose": 2 * nchunks}, k3
     ke = r.energy(r.state)
     assert means.shape == (ntraj, 2) and np.isfinite(means).all()
     assert np.isfinite(ke) and 0.0 < ke < KE_BOUND, ke
@@ -1179,7 +1208,7 @@ def phase_tersoff_sheet(dev, nsteps=48):
         fin, sums, ok = fused_chunk(
             rr._build_system(), bath_factors(rr.baths, device),
             [torch.as_tensor(x, dtype=dtype, device=device) for x in rs],
-            None, rr.hw, rr.U, S.T, nsteps, 0, None, nsteps // 4)
+            nsteps, 0, None, nsteps // 4)
         assert bool(ok)
         out.append((fin.p, fin.q, sums))
     errs = [rel_err(a, b)[0] for a, b in zip(*out)]
@@ -1201,7 +1230,9 @@ K3_SEED = 2026
 
 def batch_factors(nc, nmd, dev, seed=3):
     """Per-frequency (nmd/2+1, nc, nc) factors of a random Hermitian PSD
-    that is not proportional across frequencies, complex64 and float32."""
+    that is not proportional across frequencies, complex64 and float32,
+    as ``kernels.noise_synth.Factors``."""
+    from sclmd_tpu_torch.kernels.noise_synth import Factors
     from sclmd_tpu_torch.ops.noise import factor_matrix, noise_factors
     rng = np.random.default_rng(seed)
     base = rng.normal(size=(nc, nc)) + 1j * rng.normal(size=(nc, nc))
@@ -1212,7 +1243,25 @@ def batch_factors(nc, nmd, dev, seed=3):
     ev, std = noise_factors(psd, dtype=np.float32)
     ev = factor_matrix(ev)
     assert ev.ndim == 3, "the spectrum must not be proportional"
-    return torch.as_tensor(ev, device=dev), torch.as_tensor(std, device=dev)
+    return Factors(torch.as_tensor(ev, device=dev),
+                   torch.as_tensor(std, device=dev))
+
+
+def prop_factors(nc, nmd, dev, seed=4):
+    """One (nc, nc) complex64 matrix of a random proportional spectrum and
+    its float32 std, as ``kernels.noise_synth.Factors``."""
+    from sclmd_tpu_torch.kernels.noise_synth import Factors
+    from sclmd_tpu_torch.ops.noise import factor_matrix, noise_factors
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(nc, nc)) + 1j * rng.normal(size=(nc, nc))
+    h = nmd // 2 + 1
+    psd = (np.abs(rng.normal(size=h)) + 0.1)[:, None, None] * \
+        (m @ m.conj().T + nc * np.eye(nc))[None]
+    ev, std = noise_factors(psd, dtype=np.float32)
+    ev = factor_matrix(ev)
+    assert ev.ndim == 2, "the spectrum must be proportional"
+    return Factors(torch.as_tensor(ev, device=dev),
+                   torch.as_tensor(std, device=dev))
 
 
 def k3_operands(dev):
@@ -1222,13 +1271,15 @@ def k3_operands(dev):
     electron baths (one (150, 150) matrix, nmd 1024) at each chunk shape
     of phase 10, the periodic sheet's (one (48, 48) matrix, nmd 1024) at
     the chunk shapes of phase 15's 128 trajectories, md.Run's window of
-    phase 9 (run j = 1 of the primary: trajectories [1, 2)), and the
+    phase 9 (run j = 1 of the primary: trajectories [1, 2)), the
     per-frequency batch path (the phonon baths of a matrix-valued friction
     profile; here a random PSD of the primary's widths, nc 90, nmd 2048)
-    at phase 5's chunk shapes; K3b at the thermal starts of the runners'
-    chunks and of md.Run (window [0, 1)). Each K3 case is (evecs, std, dt,
-    nmd, ntraj, lo), each K3b case (ntraj, nph, device, lo); phase 16
-    holds the runners' chunks at lo = 3, a window inside the ensemble."""
+    at phase 5's chunk shapes, and a random proportional spectrum of
+    nc 37 (padded to 40) at 100 trajectories; K3b at the thermal starts
+    of the runners' chunks and of md.Run (window [0, 1)). Each K3 case is
+    (factors, dt, nmd, ntraj, lo), each K3b case (runner, ntraj, lo);
+    phase 16 holds the runners' chunks at lo = 3, a window inside the
+    ensemble."""
     from sclmd_tpu_torch.parallel.ensemble import bath_factors
     from sclmd_tpu_torch.tools import flagship as F
     from sclmd_tpu_torch.tools import primary as P
@@ -1242,55 +1293,91 @@ def k3_operands(dev):
     fshapes = sorted({n for ntraj in FLAG_SIZES
                       for n in F.chunk_sizes(fr._build_system(), ntraj)})
     sshapes = sorted(set(F.chunk_sizes(sr._build_system(), SHEET_NTRAJ)))
-    bev, bstd = batch_factors(P.NC, P.NMD, dev)
+    bfac = batch_factors(P.NC, P.NMD, dev)
     k3, k3b = {}, {}
     for name, r, shapes in (("primary", pr, pshapes),
                             ("flagship", fr, fshapes),
                             ("sheet", sr, sshapes)):
-        ev, std = bath_factors(r.baths, dev)[0]
+        fac = bath_factors(r.baths, dev)[0]
         for n in shapes:
-            k3[f"{name}_{n}"] = (ev, std, r.dt, r.nmd, n, 3)
+            k3[f"{name}_{n}"] = (fac, r.dt, r.nmd, n, 3)
             if name != "sheet":         # the sheet starts at rest
-                k3b[f"{name}_{n}"] = (n, r.nph, dev, 3)
-    ev, std = bath_factors(pr.baths, dev)[0]
-    k3["run_window"] = (ev, std, pr.dt, pr.nmd, 1, 1)
-    k3b["run_window"] = (1, pr.nph, dev, 0)
+                k3b[f"{name}_{n}"] = (r, n, 3)
+    k3["run_window"] = (bath_factors(pr.baths, dev)[0], pr.dt, pr.nmd, 1, 1)
+    k3b["run_window"] = (pr, 1, 0)
     for n in pshapes:
-        k3[f"batch_{n}"] = (bev, bstd, P.DT, P.NMD, n, 3)
-        k3b[f"batch_{n}"] = (n, pr.nph, dev, 3)
+        k3[f"batch_{n}"] = (bfac, P.DT, P.NMD, n, 3)
+    k3["narrow_37"] = (prop_factors(37, 1024, dev), 0.5, 1024, 100, 3)
     return {"k3": k3, "k3b": k3b}
 
 
-def k3_times(ev, std, dt, nmd, n, lo=0):
-    """K3 at one shape: kernel, its twin on the card (int64 Philox, the
-    product as batched matrix-vector products), K3 with the C2R ``hfft``
-    that makes the series, and the library composition: ``torch.randn``
-    x std, ``torch.matmul`` (one matrix) or ``torch.einsum`` (a batch),
-    and the same ``hfft`` (no single PyTorch call computes K3's
-    function). Bound: U and std read once, the half spectrum written
-    once; 4 nc^2 operations per (trajectory, frequency) at the float32
-    peak."""
+def _k3(fac, dt, nmd, lo, hi, stream=0, **kw):
     from sclmd_tpu_torch.kernels import noise_synth as K3
-    from sclmd_tpu_torch.ops.noise import series_from_halfspectrum
-    from sclmd_tpu_torch.tools.noise_bench import library_draw_product
+    ev, std = fac
+    return K3.noise_halfspectrum_cuda(ev, std, K3_SEED, stream, lo, hi,
+                                      1.0 / (nmd * dt), packed=fac.packed,
+                                      **kw)
+
+
+def _device_ms(fn, name):
+    """The profiler's device time of a launch of ``name`` (the event time
+    of a few-microsecond kernel is the host's enqueue); None where three
+    traces lost most launches."""
+    from sclmd_tpu_torch.tools.plain_bench import device_us
+    try:
+        return 1e-3 * sum(device_us(fn, reps=20, names=(name,)).values())
+    except RuntimeError as e:
+        print(json.dumps({"phase": 7, "kernel": name, "profiler": str(e)}),
+              flush=True)
+        return None
+
+
+def k3_times(fac, dt, nmd, n, lo=0):
+    """K3 at one shape: kernel (events and the profiler's device time),
+    its twin on the card (int64 Philox, the product as batched
+    matrix-vector products), the C2R stage on K3's output (one cuFFT plan
+    and the permute to (n, nmd, nc)), the whole ``schedule_noise``, and
+    the library composition ``noise_bench.library_series``:
+    ``torch.randn`` x std, ``torch.matmul`` (one matrix) or
+    ``torch.einsum`` (a batch), ``torch.fft.hfft`` / (nmd dt) made
+    contiguous (no single PyTorch call computes K3's function). Bound: U
+    and std read once, the half spectrum written once; 4 nc^2 operations
+    per (trajectory, frequency) in 3xTF32 on the tensor cores. The C2R
+    stage's bound: the half spectrum read once and the series written
+    once."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.ops.noise import schedule_noise
+    from sclmd_tpu_torch.tools.noise_bench import library_series
+    ev, std = fac
     h, nc = std.shape
 
     def kernel():
-        return K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 0, lo, lo + n)
+        return _k3(fac, dt, nmd, lo, lo + n)
 
-    def draw_product():
-        return library_draw_product(ev, std, n)
-
-    flops = 4 * nc * nc * h * n
-    nbytes = ev.numel() * 8 + std.numel() * 4 + n * h * nc * 8
-    t = _timed(kernel, lambda: K3.halfspectrum_plain(ev, std, K3_SEED, 0, lo,
-                                                     lo + n),
-               None, flops, nbytes, 10, 1)
-    t["kernel_hfft"] = cuda_ms(
-        lambda: series_from_halfspectrum(kernel(), dt, nmd), 10)
-    t["library_draw_product"] = cuda_ms(draw_product, 10)
+    work = K3.work_counts(nc, h, n, ev.shape[0] if ev.ndim == 3 else 1)
+    t = _timed(kernel, lambda: K3.halfspectrum_plain(
+        ev, std, K3_SEED, 0, lo, lo + n, 1.0 / (nmd * dt)),
+        None, work["flops"], work["bytes"], 10, 1, tf32x3=True)
+    t["event"] = t["kernel"]
+    t["device"] = _device_ms(kernel, "noise_synth")
+    y = kernel()
+    # in place on K3's buffer, as schedule_noise runs it (y overwritten)
+    t["c2r"] = cuda_ms(lambda: K3.c2r_series(y, nmd, consume=True), 10)
+    # the C2R stage's last kernel alone: (n, nc, nmd) -> (n, nmd, nc),
+    # bound by one read and one write; the library call is torch's
+    # transpose made contiguous (also its twin)
+    xs = torch.empty((n, nc, nmd), device=std.device).normal_()
+    t["transpose"] = _timed(
+        lambda: K3.transpose(xs), lambda: K3.transpose_plain(xs),
+        lambda: xs.transpose(-1, -2).contiguous(), 0, 8 * xs.numel(), 10,
+        10)
+    del xs
+    t["c2r_bound"] = 1e3 * K3.c2r_bytes(nmd, n, nc) / PEAK_HBM
+    del y
+    t["series"] = cuda_ms(lambda: schedule_noise(
+        ev, std, K3_SEED, 0, lo, lo + n, dt, nmd, packed=fac.packed), 10)
     t["library_composition"] = cuda_ms(
-        lambda: series_from_halfspectrum(draw_product(), dt, nmd), 10)
+        lambda: library_series(ev, std, n, dt, nmd), 10)
     t["library_name"] = ("torch.randn + " + ("torch.matmul" if ev.ndim == 2
                                              else "torch.einsum")
                          + " + torch.fft.hfft")
@@ -1301,23 +1388,43 @@ def k3_times(ev, std, dt, nmd, n, lo=0):
 
 
 # Philox4x32-10 and the uniform, counted as 32-bit integer operations per
-# uniform: ten rounds of two 32x32-bit products (hi and lo), two xors and
-# key additions per four words, then shift, or and convert
-K3B_OPS_PER_VALUE = 10 * (4 + 4 + 2) / 4 + 3
+# value: ten rounds of two 32x32-bit products (hi and lo), two xors and
+# key additions per four words, then shift, or and convert; then the
+# sine and cosine (counted as 4 operations each) and 4 products
+K3B_OPS_PER_VALUE = 10 * (4 + 4 + 2) / 4 + 3 + 12
 
 
-def k3b_times(n, nph, dev, lo=0):
-    """K3b at one thermal start: kernel, twin (the same integers on the
-    card), ``torch.rand`` (the library's uniforms, not these bits); bound
-    by the phases written once (integer operations at the float32
-    peak)."""
+def k3b_times(r, n, lo=0):
+    """K3b at one thermal start (the runner's ``md.ThermalStart``):
+    kernel by events and by the profiler's device time (``kernel`` is the
+    device time where the two differ by a tenth: the event loop then
+    timed the host), its twin on the card (the same integers; the
+    formula in float32), and the library composition ``torch.rand`` then
+    the same elementwise formula (other bits; no single PyTorch call
+    computes the function); bound by the amplitudes written once and am,
+    hw read once. ``start``: the whole start of the window (K3b, the
+    product with the eigenvectors, the mask)."""
     from sclmd_tpu_torch.kernels import noise_synth as K3
-    from sclmd_tpu_torch.ops import philox
-    return _timed(
-        lambda: K3.init_uniforms_cuda(K3_SEED, 2, lo, lo + n, nph, dev),
-        lambda: philox.uniforms(K3_SEED, 2, lo, lo + n, nph, dev),
-        lambda: torch.rand((n, nph), device=dev),
-        K3B_OPS_PER_VALUE * n * nph, 4 * n * nph, 50, 5)
+    st = r._thermal_start(r.T)
+    system = r._build_system()
+    nm = st.am.numel()
+
+    def kernel():
+        return K3.thermal_amplitudes(K3_SEED, 2, lo, lo + n, st.am, st.hw)
+
+    t = _timed(kernel, lambda: K3.thermal_amplitudes_plain(
+        K3_SEED, 2, lo, lo + n, st.am, st.hw), None,
+        K3B_OPS_PER_VALUE * n * nm, 4 * (2 * n * nm + 2 * nm), 50, 5)
+    t["event"] = t["kernel"]
+    t["device"] = _device_ms(kernel, "init_draw")
+    if t["device"] is not None and \
+            abs(t["event"] - t["device"]) > 0.1 * t["device"]:
+        t["kernel"] = t["device"]
+    t["library_composition"] = cuda_ms(lambda: K3.amplitudes_of(
+        torch.rand((n, nm), device=st.am.device), st.am, st.hw), 50)
+    t["start"] = cuda_ms(lambda: st.states(system, K3_SEED, 2, lo, lo + n),
+                         20)
+    return t
 
 
 def _expected_lag_cov(ev, std, dt, nmd, lag):
@@ -1344,63 +1451,109 @@ def _expected_lag_cov(ev, std, dt, nmd, lag):
 
 
 def check_noise_synth(ops, nstat=1024):
-    """Phase 16: K3 and K3b against their twins, bitwise repeats and chunk
-    invariance, and the statistics of a large draw. Returns the largest
-    absolute errors (K3's half spectrum against its float64 twin; K3b's
-    uniforms, 0 when bitwise)."""
+    """Phase 16: K3 and K3b against their twins, bitwise repeats, the same
+    bits at every launch shape, chunk invariance, and the statistics of a
+    large draw. Returns the largest absolute errors (K3's folded half
+    spectrum against its float64 twin; K3b's amplitudes against theirs)."""
     from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.md import thermal_init
     from sclmd_tpu_torch.ops import philox
-    from sclmd_tpu_torch.ops.noise import (schedule_noise,
-                                           series_from_halfspectrum)
-    worst = {"noise_synth": 0.0, "init_draw": 0.0}
-    for name, (ev, std, dt, nmd, n, lo) in ops["k3"].items():
-        xi = K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 1, lo, lo + n)
-        again = K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 1, lo, lo + n)
-        draw = K3.noise_halfspectrum_cuda(ev, std, K3_SEED, 1, lo, lo + n,
-                                          draw_only=True)
+    from sclmd_tpu_torch.ops.noise import schedule_noise
+    worst = {"noise_synth": 0.0, "init_draw": 0.0, "noise_transpose": 0.0}
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (fac, dt, nmd, n, lo) in ops["k3"].items():
+        ev, std = fac
+        h, nc = std.shape
+        y = _k3(fac, dt, nmd, lo, lo + n, stream=1)
+        again = _k3(fac, dt, nmd, lo, lo + n, stream=1)
+        shapes, same_bits = [], True
+        full = K3.launch_plan(nc, n, h, ev.ndim == 3, nsm)
+        for cw in sorted({1, max(1, full["cw"] // 2), full["cw"]}):
+            p = K3.launch_plan(nc, n, h, ev.ndim == 3, nsm, cw=cw)
+            grids = [p["grid"]] if ev.ndim == 3 else \
+                sorted({p["grid"], max(1, p["grid"] // 3)})
+            for grid in grids:
+                shapes.append([cw, grid])
+                same_bits &= bool(torch.equal(_k3(
+                    fac, dt, nmd, lo, lo + n, stream=1,
+                    plan=dict(p, grid=grid)), y))
+        draw = _k3(fac, dt, nmd, lo, lo + n, stream=1, draw_only=True)
         want_draw = K3.draw_plain(std.double(), K3_SEED, 1, lo, lo + n)
         draw_rel = rel_err(draw, want_draw)[0]
         del draw, want_draw
         want = K3.halfspectrum_plain(ev.to(torch.complex128), std.double(),
-                                     K3_SEED, 1, lo, lo + n)
-        xi_rel, xi_abs = rel_err(xi, want)
-        series_rel = rel_err(series_from_halfspectrum(xi, dt, nmd),
-                             series_from_halfspectrum(want, dt, nmd))[0]
-        del want
+                                     K3_SEED, 1, lo, lo + n,
+                                     1.0 / (nmd * dt))
+        xi_rel, xi_abs = rel_err(y, want)
+        edges_real = not (y[..., 0].imag.any() or y[..., -1].imag.any())
+        bitwise = bool(torch.equal(y, again))
+        del again
+        xs = torch.randn((n, nc, nmd), device=std.device)
+        tr_abs = float((K3.transpose(xs) - K3.transpose_plain(xs)).abs()
+                       .max())
+        worst["noise_transpose"] = max(worst["noise_transpose"], tr_abs)
+        del xs
+        # the public call leaves its input as it was; the main path's in
+        # place run on K3's buffer gives the same bits
+        y0 = y.clone()
+        series = K3.c2r_series(y, nmd)
+        input_kept = bool(torch.equal(y, y0))
+        series_rel = rel_err(series, K3.c2r_plain(want, nmd))[0]
+        in_place_same = bool(torch.equal(
+            K3.c2r_series(y, nmd, consume=True), series))
+        del want, y, y0, series
         worst["noise_synth"] = max(worst["noise_synth"], xi_abs)
-        out = {"phase": 16, "case": name, "ntraj": n, "lo": lo,
+        out = {"phase": 16, "case": name, "ntraj": n, "lo": lo, "nc": nc,
                "factors": "batch" if ev.ndim == 3 else "one matrix",
-               "plan": K3.launch_plan(
-                   std.shape[1], n, std.shape[0], ev.ndim == 3,
-                   torch.cuda.get_device_properties(
-                       std.device).multi_processor_count),
+               "plan": K3.launch_plan(nc, n, h, ev.ndim == 3, nsm),
                "draw_rel_err": draw_rel, "draw_rtol": DRAW_RTOL,
                "halfspectrum_rel_err": xi_rel, "series_rel_err": series_rel,
-               "rtol": RTOL, "bitwise_repeat": bool(torch.equal(xi, again))}
-        if name in ops["k3b"]:
-            m, nph, _, ulo = ops["k3b"][name]
-            u = K3.init_uniforms_cuda(K3_SEED, 2, ulo, ulo + m, nph,
-                                      std.device)
-            u_twin = philox.uniforms(K3_SEED, 2, ulo, ulo + m, nph,
-                                     std.device)
-            worst["init_draw"] = max(worst["init_draw"],
-                                     float((u - u_twin).abs().max()))
-            out["init_draw_bitwise"] = bool(torch.equal(u, u_twin))
-            assert out["init_draw_bitwise"], out
+               "rtol": RTOL, "bitwise_repeat": bitwise,
+               "edge_rows_real": edges_real, "transpose_abs_err": tr_abs,
+               "launch_shapes_cw_grid": shapes,
+               "same_bits_every_shape": same_bits,
+               "c2r_input_kept": input_kept,
+               "c2r_in_place_same_bits": in_place_same}
         print(json.dumps(out), flush=True)
-        assert draw_rel <= DRAW_RTOL and series_rel <= RTOL, out
-        assert out["bitwise_repeat"], out
-        del xi, again
+        assert draw_rel <= DRAW_RTOL and xi_rel <= RTOL and \
+            series_rel <= RTOL, out
+        assert bitwise and same_bits and edges_real and tr_abs == 0.0 \
+            and input_kept and in_place_same, out
+    for name, (r, m, ulo) in ops["k3b"].items():
+        st = r._thermal_start(r.T)
+        nph, dev = st.am.numel(), st.am.device
+        u = K3.init_uniforms_cuda(K3_SEED, 2, ulo, ulo + m, nph, dev)
+        u_twin = philox.uniforms(K3_SEED, 2, ulo, ulo + m, nph, dev)
+        amps = K3.thermal_amplitudes(K3_SEED, 2, ulo, ulo + m, st.am, st.hw)
+        want = K3.thermal_amplitudes_plain(K3_SEED, 2, ulo, ulo + m,
+                                           st.am.double(), st.hw.double())
+        amp_rel, amp_abs = rel_err(amps, want)
+        system = r._build_system()
+        got = st.states(system, K3_SEED, 2, ulo, ulo + m)
+        ref = thermal_init(u_twin, system, r.hw, r.U, r.T)
+        start_rel = max(rel_err(got.p, ref.p)[0], rel_err(got.q, ref.q)[0])
+        worst["init_draw"] = max(worst["init_draw"], amp_abs)
+        out = {"phase": 16, "case": f"init_draw_{name}", "ntraj": m,
+               "lo": ulo, "uniforms_bitwise": bool(torch.equal(u, u_twin)),
+               "amplitudes_rel_err": amp_rel, "amplitudes_rtol": DRAW_RTOL,
+               "start_rel_err": start_rel, "rtol": RTOL}
+        print(json.dumps(out), flush=True)
+        assert out["uniforms_bitwise"], out
+        assert amp_rel <= DRAW_RTOL and start_rel <= RTOL, out
     for name in ("primary", "flagship", "batch"):
-        ev, std, dt, nmd, *_ = next(v for k, v in ops["k3"].items()
-                                   if k.startswith(name))
+        fac, dt, nmd, *_ = next(v for k, v in ops["k3"].items()
+                                if k.startswith(name))
+        ev, std = fac
+
+        def series(lo, hi, stream=0):
+            return schedule_noise(ev, std, K3_SEED, stream, lo, hi, dt, nmd,
+                                  packed=fac.packed)
         # one trajectory's series from a chunk of 256 and one of 64
-        a = schedule_noise(ev, std, K3_SEED, 0, 0, 256, dt, nmd)
-        b = schedule_noise(ev, std, K3_SEED, 0, 192, 256, dt, nmd)
+        a, b = series(0, 256), series(192, 256)
         same = bool(torch.equal(a[200], b[8]) and torch.equal(a[192:], b))
         del a, b
         # statistics of a large draw against the factors' values
-        x = schedule_noise(ev, std, K3_SEED, 0, 0, nstat, dt, nmd).double()
+        x = series(0, nstat).double()
         v = (x * x).mean(dim=(1, 2))
         c1 = (x * torch.roll(x, -1, dims=1)).mean(dim=(1, 2))
         del x
@@ -1476,7 +1629,9 @@ def phase_crosscheck(dev, ntraj=256):
     print(json.dumps(out), flush=True)
     # two baths, one synthesis per chunk and direction; zero starts
     assert out["launches"] == {"noise_synth": 2 * 2 * nchunks,
-                               "init_draw": 0}, out["launches"]
+                               "init_draw": 0,
+                               "noise_transpose": 2 * 2 * nchunks}, \
+        out["launches"]
     assert np.isfinite(j).all(), j
     assert abs(dev_pct) <= GATE_DEV_PCT and sem_pct <= GATE_SEM_PCT, out
 

@@ -3,7 +3,9 @@
 Every ``sclmd_tpu_torch/csrc/*.cu`` file has a plain C interface. Each
 is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all started
 together, and the objects are linked into ONE shared library loaded
-with ``ctypes``. The build runs at first use, never at import,
+with ``ctypes``; the library links the toolkit's cuFFT, which K3's C2R
+transform calls (``csrc/noise_synth.cu``). The build runs at first use,
+never at import,
 into ``sclmd_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
 sources and flags, so an unchanged tree reuses its library and an edited
 one rebuilds. The compiler's ``-Xptxas -v`` report (registers, shared
@@ -26,6 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_LIBS = ["-lcufft"]
 
 _lib = None
 build_seconds = None
@@ -46,7 +49,7 @@ def sources() -> list:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -79,7 +82,10 @@ def build() -> str:
         if any(pr.returncode != 0 for pr in procs):
             raise RuntimeError(f"nvcc failed:\n{log}")
         tmp = os.path.join(tmpdir, "lib.so")
-        link = [nvcc, "-shared", "-o", tmp, *objs]
+        cuda_lib = os.path.join(os.path.dirname(os.path.dirname(nvcc)),
+                                "lib64")
+        link = [nvcc, "-shared", "-o", tmp, *objs, *LINK_LIBS, "-Xlinker",
+                "-rpath=" + cuda_lib]
         res = subprocess.run(link, capture_output=True, text=True)
         log += " ".join(link) + "\n" + res.stdout + res.stderr
         if res.returncode != 0:
@@ -127,12 +133,19 @@ def load() -> ctypes.CDLL:
     lib.ch_force_trace_len.argtypes = []
     lib.ch_force_trace_len.restype = ci
     cu = ctypes.c_uint
-    lib.noise_synth_r.argtypes = []
-    lib.noise_synth_r.restype = ci
+    ip, ll = ctypes.POINTER(ci), ctypes.c_longlong
+    lib.noise_synth_tiles.argtypes = [ip, ip]
+    lib.noise_synth_tiles.restype = ci
     lib.noise_synth_f32.argtypes = [vp, vp]
     lib.noise_synth_f32.restype = ci
-    lib.init_draw_f32.argtypes = [vp, ci, ci, cu, cu, cu, vp]
+    lib.init_draw_f32.argtypes = [vp, vp, vp, ci, ci, cu, cu, cu, vp]
     lib.init_draw_f32.restype = ci
+    lib.noise_c2r_plan.argtypes = [ci, ll, ctypes.POINTER(ctypes.c_size_t)]
+    lib.noise_c2r_plan.restype = ci
+    lib.noise_c2r_f32.argtypes = [vp, vp, ci, ll, vp, vp]
+    lib.noise_c2r_f32.restype = ci
+    lib.noise_transpose_f32.argtypes = [vp, vp, ci, ci, ci, vp]
+    lib.noise_transpose_f32.restype = ci
     _lib = lib
     return lib
 

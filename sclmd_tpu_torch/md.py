@@ -147,6 +147,17 @@ def initial_state(system: GLESystem, ntraj: int = 1,
                    qhis=torch.zeros((ntraj, 1, nph), dtype=dtype, device=dev))
 
 
+def mode_amplitudes(hw, T, freq_cut: float = 0.01):
+    """Host float64 (am, hw) of the thermal start: each mode with
+    hw_i >= freq_cut gets amplitude sqrt(2 (n_B(hw_i, T) + 1/2) / hw_i),
+    the others 0; ``T`` a scalar or a per-mode array."""
+    hw_np = np.asarray(hw.cpu() if torch.is_tensor(hw) else hw, np.float64)
+    safe_hw = np.where(hw_np < freq_cut, 1.0, hw_np)
+    am_np = np.where(hw_np < freq_cut, 0.0,
+                     np.sqrt((bose(safe_hw, T) + 0.5) * 2.0 / safe_hw))
+    return am_np, hw_np
+
+
 def thermal_init(u: torch.Tensor, system: GLESystem, hw, evecs, T,
                  freq_cut: float = 0.01) -> MDState:
     """Bose-weighted random initial conditions from the normal modes.
@@ -155,11 +166,9 @@ def thermal_init(u: torch.Tensor, system: GLESystem, hw, evecs, T,
     mode with hw_i >= freq_cut gets amplitude
     sqrt(2 (n_B(hw_i, T) + 1/2) / hw_i); constrained DOFs are zeroed.
     The amplitudes are setup quantities, computed on the host in float64.
+    The runners take ``ThermalStart`` instead, which draws ``u`` itself.
     """
-    hw_np = np.asarray(hw.cpu() if torch.is_tensor(hw) else hw, np.float64)
-    safe_hw = np.where(hw_np < freq_cut, 1.0, hw_np)
-    am_np = np.where(hw_np < freq_cut, 0.0,
-                     np.sqrt((bose(safe_hw, T) + 0.5) * 2.0 / safe_hw))
+    am_np, hw_np = mode_amplitudes(hw, T, freq_cut)
     dtype, dev = u.dtype, u.device
     am = torch.as_tensor(am_np, dtype=dtype, device=dev)
     hw_t = torch.as_tensor(hw_np, dtype=dtype, device=dev)
@@ -168,6 +177,43 @@ def thermal_init(u: torch.Tensor, system: GLESystem, hw, evecs, T,
     vel = -matvec(ev, hw_t * am * torch.sin(2 * np.pi * u))
     st = initial_state(system, u.shape[0], dtype=dtype)
     return st.replace(p=vel * system.mask, q=dis * system.mask)
+
+
+class ThermalStart:
+    """The thermal start at one temperature, its constants made once on
+    the device: the mode amplitudes ``am`` and frequencies ``hw`` (host
+    float64, then cast) and the eigenvectors. ``states`` draws the phases
+    of a trajectory window on the schedule and makes the mode-space
+    amplitudes (K3b on the card, one launch) and their product with the
+    eigenvectors (one ``torch.matmul`` on the card; on the CPU the
+    batch-invariant ``matvec``, bitwise ``thermal_init`` on the same
+    uniforms): no host-device copy per window."""
+
+    def __init__(self, hw, evecs, T, dtype, device, freq_cut: float = 0.01):
+        am, hw_np = mode_amplitudes(hw, T, freq_cut)
+        self.am = torch.as_tensor(am, dtype=dtype, device=device)
+        self.hw = torch.as_tensor(hw_np, dtype=dtype, device=device)
+        self.evecs = torch.as_tensor(evecs, dtype=dtype, device=device)
+        self.evecs_t = self.evecs.T.contiguous()
+
+    def project(self, amps: torch.Tensor, system: GLESystem) -> MDState:
+        """The state of mode-space amplitudes (2, traj, nm): q from the
+        first, p from the second, constrained DOFs zeroed."""
+        if amps.device.type == "cuda":
+            ds = torch.matmul(amps, self.evecs_t)
+        else:
+            ds = matvec(self.evecs, amps)
+        st = initial_state(system, amps.shape[1], dtype=amps.dtype)
+        return st.replace(p=ds[1] * system.mask, q=ds[0] * system.mask)
+
+    def states(self, system: GLESystem, seed: int, stream: int, lo: int,
+               hi: int) -> MDState:
+        """Initial states of trajectories [lo, hi) on the schedule's
+        stream ``stream`` (the number of baths)."""
+        from sclmd_tpu_torch.kernels import noise_synth as K3
+        return self.project(
+            K3.thermal_amplitudes(seed, stream, lo, hi, self.am, self.hw),
+            system)
 
 
 def set_dyn(dyn, dtype=torch.float64, device=None):
@@ -605,6 +651,7 @@ class md:
             self.dyn = None
             self.hw = np.array([1.0])
             self.U = None
+        self._starts = {}
 
     def AddBath(self, bath):
         """Attach an ``EBath`` or a ``PhBath`` (moved to the runner's
@@ -721,11 +768,19 @@ class md:
         number of baths of the schedule seeded ``seed``), or zeros."""
         if self.dyn is None or not self.initranvel:
             return initial_state(system, 1, dtype=self.dtype)
-        from sclmd_tpu_torch.parallel.ensemble import init_draws
         seed = self._next_seed() if seed is None else seed
-        us = init_draws(seed, len(self.baths), 0, 1, self.nph, self.device,
-                        self.dtype)
-        return thermal_init(us, system, self.hw, self.U, self.T)
+        return self._thermal_start(self.T).states(system, seed,
+                                                  len(self.baths), 0, 1)
+
+    def _thermal_start(self, T) -> ThermalStart:
+        """The thermal start at temperature ``T`` (a scalar or per-mode
+        array), made once per runner and temperature."""
+        key = float(T) if np.ndim(T) == 0 else \
+            np.asarray(T, np.float64).tobytes()
+        if key not in self._starts:
+            self._starts[key] = ThermalStart(self.hw, self.U, T, self.dtype,
+                                             self.device)
+        return self._starts[key]
 
     def _draw_noise(self, seed: int, j: int):
         """Fresh noise of run ``j`` for every bath, as a batch of one:
@@ -969,10 +1024,13 @@ class md:
         chunk = max(1, min(int(chunk), ntraj))
 
         seed = self._next_seed()
-        thermal = self.initranvel and self.dyn is not None
-        T_init = self.T
-        if thermal and steady_init and self.baths:
-            T_init = steady_mode_temps(self.U, self.baths, self.T, hw=self.hw)
+        start = None
+        if self.initranvel and self.dyn is not None:
+            T_init = self.T
+            if steady_init and self.baths:
+                T_init = steady_mode_temps(self.U, self.baths, self.T,
+                                           hw=self.hw)
+            start = self._thermal_start(T_init)
         facs = bath_factors(self.baths, self.device)
         cur_sum = np.zeros((ntraj, nb))
         cur_cnt = nsteps - min(skip, nsteps)
@@ -991,12 +1049,11 @@ class md:
         first = None
         for ic in range(-(-ntraj // chunk)):
             c0, c1 = ic * chunk, min((ic + 1) * chunk, ntraj)
-            noises, us = draw_chunk(facs, seed, c0, c1, self.nph if thermal
-                                    else None, self.device, self.dtype,
-                                    self.dt, self.nmd)
+            noises, states = draw_chunk(facs, seed, c0, c1, self.dt,
+                                        self.nmd, start, system)
             finals, sums, ok = fused_chunk(
-                system, facs, None, us, self.hw, self.U, T_init, nsteps, 0,
-                block, min(skip, nsteps), noises=noises)
+                system, facs, None, nsteps, 0, block, min(skip, nsteps),
+                noises=noises, states=states)
             # read a chunk's sums back, and write its files, only after the
             # next chunk's launches: those then overlap this chunk on the
             # card (reading them at once would leave the card idle)

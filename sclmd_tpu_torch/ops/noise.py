@@ -3,10 +3,13 @@
 Setup stays on the host in numpy float64: the half-spectrum PSD batch
 (``phonon_psd``) and its one-time eigendecomposition (``noise_factors``).
 Sampling runs on torch tensors with a leading trajectory dimension:
-draw x std, times the PSD eigenvectors (the half spectrum), then the
-Hermitian C2R transform ``hfft`` / (nmd dt), which equals the real part
-of ``fourier_w2t`` of the mirrored full spectrum at half the work. On the
-card the draw and the product are kernel K3 (``kernels.noise_synth``).
+draw x std, times the PSD eigenvectors (the half spectrum xi), folded
+for the C2R transform (conj(xi) / (nmd dt), frequency axis last), then
+the C2R transform itself: ``hfft(xi) / (nmd dt)``, which equals the real
+part of ``fourier_w2t`` of the mirrored full spectrum at half the work.
+On the card the draw, the product and the fold are kernel K3, the
+transform one cuFFT plan, and the series' layout the hand transpose
+(``kernels.noise_synth``).
 
 Where the JAX package takes a ``jax.random`` key, the port takes a
 ``draw``: either a standard-normal tensor of the factors' shape (the
@@ -166,14 +169,35 @@ def drop_edge_imag_(xi_pos: torch.Tensor) -> torch.Tensor:
     return xi_pos
 
 
-def series_from_halfspectrum(xi_pos: torch.Tensor, dt: float,
-                             nmd: int) -> torch.Tensor:
-    """Real (..., nmd, nc) series of the half spectrum (..., hlen+1, nc):
-    ``hfft`` / (nmd dt), the real part of ``fourier_w2t`` of
-    ``mirror_halfspectrum``. The imaginary parts of rows 0 and hlen must
-    be zero (``drop_edge_imag_``), as K3 writes them."""
+def fold_halfspectrum(xi_pos: torch.Tensor, scale: float) -> torch.Tensor:
+    """K3's output convention: conj(xi_pos) scale with the frequency axis
+    last, (..., hlen+1, nc) -> (..., nc, hlen+1) contiguous, the input of
+    ``series_from_halfspectrum``."""
+    return (torch.conj(xi_pos) * scale).transpose(-1, -2).contiguous()
+
+
+def series_from_halfspectrum(y: torch.Tensor, nmd: int) -> torch.Tensor:
+    """Real (..., nmd, nc) series of a folded half spectrum y (..., nc,
+    hlen+1) (``fold_halfspectrum``, as K3 writes it): the C2R transform
+    along the last axis with no normalisation, which for y = conj(xi) /
+    (nmd dt) is ``hfft(xi) / (nmd dt)``, the real part of ``fourier_w2t``
+    of ``mirror_halfspectrum(xi)``, then the last two axes swapped. The
+    imaginary parts at frequencies 0 and hlen must be zero
+    (``drop_edge_imag_``). One cuFFT plan (on a copy: y stays as it was)
+    and the hand transpose on the card, ``irfft`` on the CPU."""
+    from sclmd_tpu_torch.kernels.noise_synth import c2r_series
     _check_even(nmd)
-    return torch.fft.hfft(xi_pos, n=nmd, dim=-2).div_(nmd * dt).contiguous()
+    return c2r_series(y, nmd)
+
+
+def synthesize_series(xi_pos: torch.Tensor, dt: float,
+                      nmd: int) -> torch.Tensor:
+    """Real (..., nmd, nc) series of the half spectrum xi_pos (...,
+    hlen+1, nc): its edge rows' imaginary parts dropped, folded, and the
+    C2R transform."""
+    _check_even(nmd)
+    return series_from_halfspectrum(fold_halfspectrum(
+        drop_edge_imag_(xi_pos), 1.0 / (nmd * dt)), nmd)
 
 
 def sample_noise_from_r(r: torch.Tensor, evecs: torch.Tensor,
@@ -183,20 +207,22 @@ def sample_noise_from_r(r: torch.Tensor, evecs: torch.Tensor,
     (..., hlen+1, nc): xi(w) = U(w) (r std), then the Hermitian C2R
     transform. ``evecs`` is one (nc, nc) matrix (proportional spectrum) or
     an (hlen+1, nc, nc) batch; leading dims of ``r`` are trajectories."""
-    _check_even(nmd)
-    return series_from_halfspectrum(
-        drop_edge_imag_(halfspectrum_from_draw(r * std, evecs)), dt, nmd)
+    return synthesize_series(halfspectrum_from_draw(r * std, evecs), dt, nmd)
 
 
 def schedule_noise(evecs: torch.Tensor, std: torch.Tensor, seed: int,
-                   stream: int, lo: int, hi: int, dt: float,
-                   nmd: int) -> torch.Tensor:
+                   stream: int, lo: int, hi: int, dt: float, nmd: int,
+                   packed: tuple = None) -> torch.Tensor:
     """(hi-lo, nmd, nc) series of trajectories [lo, hi) of the schedule's
-    stream: kernel K3 and cuFFT on the card, the twin on the CPU."""
-    from sclmd_tpu_torch.kernels.noise_synth import noise_halfspectrum
+    stream: kernel K3 (``packed``: its operands, ``Factors.packed`` of
+    ``kernels.noise_synth``), a cuFFT C2R plan run in place on K3's
+    buffer and the hand transpose on the card, the twin on the CPU."""
+    from sclmd_tpu_torch.kernels.noise_synth import (c2r_series,
+                                                     noise_halfspectrum)
     _check_even(nmd)
-    xi = noise_halfspectrum(evecs, std, seed, stream, lo, hi)
-    return series_from_halfspectrum(xi, dt, nmd)
+    return c2r_series(noise_halfspectrum(
+        evecs, std, seed, stream, lo, hi, 1.0 / (nmd * dt), packed=packed),
+        nmd, consume=True)
 
 
 def _normals(draw, shape, device) -> torch.Tensor:
@@ -276,9 +302,7 @@ def sample_from_psd(draw, psd) -> torch.Tensor:
 def synthesize(draw, psd, dt: float, nmd: int) -> torch.Tensor:
     """Real (nmd, nc) series from the half-spectrum PSD batch."""
     _check_even(nmd)
-    return series_from_halfspectrum(drop_edge_imag_(sample_from_psd(draw,
-                                                                    psd)),
-                                    dt, nmd)
+    return synthesize_series(sample_from_psd(draw, psd), dt, nmd)
 
 
 def enoise(draw, efric, exim, exip, bias, T, ecut, dt, nmd,

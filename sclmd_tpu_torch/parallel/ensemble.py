@@ -6,10 +6,12 @@ Randomness comes from a counter-keyed schedule (``ops.philox``): the
 noise of bath i for trajectory j is drawn by Philox4x32-10 keyed by
 (ensemble seed, stream i) at counters (element // 4, 0, j, 0), and the
 thermal start's phases on stream = number of baths. On the card kernel
-K3 draws the noise inside the product with the PSD eigenvectors and K3b
-the phases (``kernels.noise_synth``); on the CPU the twin draws the same
-integers. A chunked ensemble therefore draws bitwise the same numbers as
-the unchunked one; chunking changes peak memory, never the physics. The
+K3 draws the noise inside the product with the PSD eigenvectors (then
+one cuFFT C2R plan makes the series) and K3b the phases and the start's
+mode-space amplitudes (``kernels.noise_synth``, ``md.ThermalStart``); on
+the CPU the twin draws the same integers. A chunked ensemble therefore
+draws bitwise the same numbers as the unchunked one; chunking changes
+peak memory, never the physics. The
 numbers are not the JAX package's (threefry), nor the per-trajectory
 ``torch.Generator`` streams of the port before the schedule moved into
 the kernel.
@@ -22,9 +24,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sclmd_tpu_torch.md import (GLESystem, MDState, blocked_supports,
-                                initial_state, run_segment,
-                                run_segment_blocked, thermal_init)
+from sclmd_tpu_torch.kernels.noise_synth import Factors
+from sclmd_tpu_torch.md import (GLESystem, MDState, ThermalStart,
+                                blocked_supports, initial_state, run_segment,
+                                run_segment_blocked)
 from sclmd_tpu_torch.ops.noise import (factor_matrix, sample_noise_from_r,
                                        schedule_noise)
 from sclmd_tpu_torch.ops.philox import splitmix64
@@ -36,16 +39,18 @@ def ensemble_seed(seed: int, call: int) -> int:
 
 
 def bath_factors(baths, device) -> list:
-    """Per-bath (evecs, std) noise factors on ``device``: one (nc, nc)
-    matrix for a proportional spectrum (never nw broadcast copies), else
-    the (nw, nc, nc) batch."""
+    """Per-bath noise factors (``kernels.noise_synth.Factors``: the pair
+    (evecs, std) on ``device``, with K3's packed operand made once on the
+    card): one (nc, nc) matrix for a proportional spectrum (never nw
+    broadcast copies), else the (nw, nc, nc) batch."""
     facs = []
     for b in baths:
         if b.nstd is None:
             raise ValueError("bath carries no PSD factors: build it with "
                              "factorize=True")
-        facs.append((torch.as_tensor(factor_matrix(b.nevecs), device=device),
-                     torch.as_tensor(np.asarray(b.nstd), device=device)))
+        facs.append(Factors(
+            torch.as_tensor(factor_matrix(b.nevecs), device=device),
+            torch.as_tensor(np.asarray(b.nstd), device=device)))
     return facs
 
 
@@ -53,26 +58,21 @@ def chunk_noise(facs, seed: int, lo: int, hi: int, dt: float,
                 nmd: int) -> list:
     """Per bath the (hi-lo, nmd, nc) noise series of trajectories [lo, hi)
     on the schedule (stream = bath index): K3 and cuFFT on the card."""
-    return [schedule_noise(ev, std, seed, i, lo, hi, dt, nmd)
-            for i, (ev, std) in enumerate(facs)]
+    return [schedule_noise(f[0], f[1], seed, i, lo, hi, dt, nmd,
+                           packed=getattr(f, "packed", None))
+            for i, f in enumerate(facs)]
 
 
-def draw_chunk(facs, seed: int, lo: int, hi: int, nm: Optional[int],
-               device, dtype, dt: float, nmd: int):
+def draw_chunk(facs, seed: int, lo: int, hi: int, dt: float, nmd: int,
+               start: Optional[ThermalStart] = None,
+               system: Optional[GLESystem] = None):
     """The schedule's draws for trajectories [lo, hi), synthesised: per
     bath the (hi-lo, nmd, nc) noise series (``chunk_noise``), and the
-    (hi-lo, nm) uniform thermal-init phases (None when ``nm`` is None)."""
-    us = None if nm is None else init_draws(seed, len(facs), lo, hi, nm,
-                                            device, dtype)
-    return chunk_noise(facs, seed, lo, hi, dt, nmd), us
-
-
-def init_draws(seed: int, stream: int, lo: int, hi: int, nm: int, device,
-               dtype) -> torch.Tensor:
-    """Uniform (hi-lo, nm) thermal-init phases of the schedule's stream
-    ``stream`` (the number of baths): K3b on the card."""
-    from sclmd_tpu_torch.kernels.noise_synth import init_uniforms
-    return init_uniforms(seed, stream, lo, hi, nm, device, dtype)
+    thermal start's states of ``system`` (stream = number of baths; None
+    when ``start`` is None)."""
+    states = None if start is None else start.states(system, seed,
+                                                     len(facs), lo, hi)
+    return chunk_noise(facs, seed, lo, hi, dt, nmd), states
 
 
 def ensemble_states(system: GLESystem, n: int, seed: Optional[int] = None,
@@ -85,9 +85,8 @@ def ensemble_states(system: GLESystem, n: int, seed: Optional[int] = None,
     dtype = dtype or system.mask.dtype
     if seed is None:
         return initial_state(system, hi - lo, dtype=dtype)
-    us = init_draws(seed, len(system.baths), lo, hi, system.nph,
-                    system.mask.device, dtype)
-    return thermal_init(us, system, hw, evecs, T)
+    start = ThermalStart(hw, evecs, T, dtype, system.mask.device)
+    return start.states(system, seed, len(system.baths), lo, hi)
 
 
 def estimate_traj_bytes(system: GLESystem, nsteps: int,
@@ -106,8 +105,9 @@ def estimate_traj_bytes(system: GLESystem, nsteps: int,
     total = 0
     for b in system.baths:
         nc = int(b.nc)
-        # noise (nmd, nc) + the complex half spectrum (~nmd reals) + the
-        # C2R transform's copy of it (K3 writes no draws)
+        # the series (nmd, nc), and while it is made the folded half
+        # spectrum K3 writes (~nmd reals) and cuFFT's (nc, nmd) output
+        # before the transpose to the series' layout (K3 writes no draws)
         total += 3 * system.nmd * nc * item
         if b.ml > 1 and block:
             nfft = 1 << (int(b.ml + block + 2) - 1).bit_length()
@@ -145,19 +145,21 @@ def auto_chunk(system: GLESystem, ntraj: int, nsteps: int,
     return 1 << (int(chunk).bit_length() - 1)
 
 
-def fused_chunk(system: GLESystem, facs, rs, us, hw, evecs, T_init,
-                nsteps: int, t0: int, block: Optional[int], skiplo: int,
-                noises: Optional[list] = None):
-    """Noise synthesis + initial states + run + current reduction for one
-    chunk of trajectories: the blocked integrator with ``block``, the
-    plain step (``run_segment``) when ``block`` is None.
+def fused_chunk(system: GLESystem, facs, rs, nsteps: int, t0: int,
+                block: Optional[int], skiplo: int,
+                noises: Optional[list] = None,
+                states: Optional[MDState] = None):
+    """Noise synthesis + run + current reduction for one chunk of
+    trajectories: the blocked integrator with ``block``, the plain step
+    (``run_segment``) when ``block`` is None.
 
     ``noises``: per-bath (chunk, nmd, nc) series already synthesised
     (``draw_chunk``, the runner's path); else ``rs``: per-bath (chunk, nw,
-    nc) standard-normal draws injected by a test. ``us``: (chunk, nph)
-    uniform thermal-init phases, or None for a zero start. Returns (final
-    states, per-trajectory current sums over steps [skiplo, nsteps),
-    finite flag as a 0-dim bool tensor).
+    nc) standard-normal draws injected by a test. ``states``: the chunk's
+    initial states (``draw_chunk``, or ``md.thermal_init`` of injected
+    phases), None for a zero start.
+    Returns (final states, per-trajectory current sums over steps
+    [skiplo, nsteps), finite flag as a 0-dim bool tensor).
     """
     dt, nmd = system.dt, system.nmd
     if noises is None:
@@ -165,11 +167,8 @@ def fused_chunk(system: GLESystem, facs, rs, us, hw, evecs, T_init,
                   for r, (ev, std) in zip(rs, facs)]
     sysb = system.replace(baths=tuple(
         b.replace(noise=nz) for b, nz in zip(system.baths, noises)))
-    chunk = noises[0].shape[0] if noises else us.shape[0]
-    if us is None:
-        states = initial_state(system, chunk)
-    else:
-        states = thermal_init(us, system, hw, evecs, T_init)
+    if states is None:
+        states = initial_state(system, noises[0].shape[0])
     finals, ys = ensemble_run(sysb, states, nsteps, t0=t0, block=block)
     return (finals,) + cur_reduce(ys["cur"], skiplo)
 

@@ -51,15 +51,14 @@ def block_operands(r, ntraj: int, seed: int, gen: torch.Generator):
     start, real colored noise, and the K2 tails of a random history.
     Returns (system, args of ``gle_block``, per-bath (khat, hhat))."""
     from sclmd_tpu_torch.kernels import gle_block as K1
-    from sclmd_tpu_torch.md import _next_pow2, thermal_init
+    from sclmd_tpu_torch.md import _next_pow2
     from sclmd_tpu_torch.parallel.ensemble import bath_factors, draw_chunk
 
     dev = r.device
     system = r._build_system()
     facs = bath_factors(r.baths, dev)
-    noises, us = draw_chunk(facs, seed, 0, ntraj, NPH, dev, torch.float32,
-                            DT, NMD)
-    st = thermal_init(us, system, r.hw, r.U, T)
+    noises, st = draw_chunk(facs, seed, 0, ntraj, DT, NMD,
+                            r._thermal_start(T), system)
     nfft = _next_pow2(ML + BLOCK + 2)
     ops, corr = [], []
     for b, nz in zip(r.baths, noises):

@@ -15,7 +15,8 @@ Needs a CUDA card. For each trajectory count: one warm-up call, one
 untraced call timed on the host clock (``torch.cuda.synchronize`` inside
 the window), then one call under ``torch.profiler`` with a span around
 each layer (draws; within them noise synthesis, K3's launch or twin
-``noise_synth`` and K3b's ``init_draws``; thermal init, the integrators, the
+``noise_synth``, the C2R stage ``noise_c2r``, the thermal start
+``thermal_init`` and K3b's ``init_draws`` within it; the integrators, the
 potential force, K1 with its near- and far-tap launches, K2, K5, K6, K7, the
 output files). From the trace it
 reports:
@@ -53,8 +54,10 @@ SPANS = {
                         "schedule_noise"),
     "noise_synth": ("sclmd_tpu_torch.kernels.noise_synth",
                     "noise_halfspectrum"),
-    "init_draws": ("sclmd_tpu_torch.parallel.ensemble", "init_draws"),
-    "thermal_init": ("sclmd_tpu_torch.parallel.ensemble", "thermal_init"),
+    "noise_c2r": ("sclmd_tpu_torch.kernels.noise_synth", "c2r_series"),
+    "init_draws": ("sclmd_tpu_torch.kernels.noise_synth",
+                   "thermal_amplitudes"),
+    "thermal_init": ("sclmd_tpu_torch.md:ThermalStart", "states"),
     "run_segment_blocked": ("sclmd_tpu_torch.parallel.ensemble",
                             "run_segment_blocked"),
     "run_segment": ("sclmd_tpu_torch.parallel.ensemble", "run_segment"),

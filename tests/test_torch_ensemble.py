@@ -23,6 +23,7 @@ from sclmd_tpu.ops import noise as JN
 
 from sclmd_tpu_torch import baths as TB
 from sclmd_tpu_torch import md as TMD
+from sclmd_tpu_torch.kernels import noise_synth as K3
 from sclmd_tpu_torch.ops import noise as TN
 from sclmd_tpu_torch.parallel import ensemble as TE
 
@@ -81,9 +82,10 @@ def test_fused_chunk_matches_jax():
     rs = [torch.as_tensor(np.stack([
         np.random.default_rng(s).standard_normal(tuple(std.shape))
         for s in seeds[i]])) for i, (_, std) in enumerate(facs)]
+    system = r._build_system()
     finals, sums, ok = TE.fused_chunk(
-        r._build_system(), facs, rs, torch.as_tensor(us), r.hw, r.U, T,
-        nsteps, 0, block, skip)
+        system, facs, rs, nsteps, 0, block, skip,
+        states=TMD.thermal_init(torch.as_tensor(us), system, r.hw, r.U, T))
     assert bool(ok) and sums.shape == (ntraj, 2)
     np.testing.assert_allclose(sums.numpy(), np.stack(want), rtol=1e-9,
                                atol=1e-14)
@@ -105,26 +107,86 @@ def test_chunked_ensemble_is_bitwise_unchunked(tmp_path):
 
 def test_draw_schedule_windows():
     """The Philox schedule: windows of trajectories [0, 5) and [3, 5) draw
-    bitwise the same noise series and phases; streams differ by bath and
-    seeds differ; the twin's noise is the schedule's normals through
-    ``sample_noise_from_r``."""
+    bitwise the same noise series and thermal starts; streams differ by
+    bath and seeds differ; the twin's noise is the schedule's normals
+    through ``sample_noise_from_r``, and its start is ``thermal_init`` on
+    the schedule's uniforms (stream = number of baths)."""
     from sclmd_tpu_torch.ops import philox
     from sclmd_tpu_torch.ops.noise import sample_noise_from_r
-    facs = TE.bath_factors(_torch_runner("unused").baths, "cpu")
-    rs, us = TE.draw_chunk(facs, 11, 0, 5, NPH, "cpu", torch.float64, DT,
-                           NMD)
-    rs2, us2 = TE.draw_chunk(facs, 11, 3, 5, NPH, "cpu", torch.float64, DT,
-                             NMD)
-    assert torch.equal(rs[1][3:], rs2[1]) and torch.equal(us[3:], us2)
+    r = _torch_runner("unused")
+    system = r._build_system()
+    facs = TE.bath_factors(r.baths, "cpu")
+    start = r._thermal_start(T)
+    rs, st = TE.draw_chunk(facs, 11, 0, 5, DT, NMD, start, system)
+    rs2, st2 = TE.draw_chunk(facs, 11, 3, 5, DT, NMD, start, system)
+    assert torch.equal(rs[1][3:], rs2[1])
+    assert torch.equal(st.p[3:], st2.p) and torch.equal(st.q[3:], st2.q)
     assert not torch.equal(rs[0], rs[1])        # streams differ by bath
-    assert not torch.equal(TE.draw_chunk(facs, 12, 0, 5, None, "cpu",
-                                         torch.float64, DT, NMD)[0][0],
-                           rs[0])
-    assert torch.equal(us, philox.uniforms(11, len(facs), 0, 5, NPH,
-                                           dtype=torch.float64))
+    noises, none = TE.draw_chunk(facs, 12, 0, 5, DT, NMD)
+    assert none is None and not torch.equal(noises[0], rs[0])
+    u = philox.uniforms(11, len(facs), 0, 5, NPH, dtype=torch.float64)
+    want = TMD.thermal_init(u, system, r.hw, r.U, T)
+    assert torch.equal(st.p, want.p) and torch.equal(st.q, want.q)
     ev, std = facs[1]
     z = philox.normals(11, 1, 0, 5, std.numel()).reshape((5,) + std.shape)
     assert torch.equal(rs[1], sample_noise_from_r(z, ev, std, DT, NMD))
+
+
+@pytest.mark.parametrize("per_mode", [False, True])
+def test_thermal_start_matches_jax_thermal_init(per_mode):
+    """K3b's twin and the product (``md.ThermalStart``) on the uniforms
+    the JAX package's ``thermal_init`` draws from its key give its state,
+    for a scalar temperature and a per-mode one; on the schedule's
+    uniforms they give the port's ``thermal_init`` bitwise."""
+    from sclmd_tpu_torch.ops import philox
+    r = _torch_runner("unused")
+    r.AddConstr([[0, 1, 2]])
+    system = r._build_system()
+    Tm = np.linspace(250.0, 350.0, NPH) if per_mode else T
+    dyn, hw, U = JMD.set_dyn(_dyn(), dtype=jnp.float64)
+    jsys = JMD.GLESystem(dyn=dyn, baths=(), mask=jnp.asarray(
+        system.mask.numpy()), dt=DT, nph=NPH, ml=1, nmd=NMD)
+    start = TMD.ThermalStart(r.hw, r.U, Tm, torch.float64, "cpu")
+    keys = jax.random.split(jax.random.PRNGKey(5), 3)
+    for key in keys:
+        u = torch.as_tensor(np.array(jax.random.uniform(
+            key, (NPH,), dtype=jnp.float64)))[None]
+        got = start.project(K3.amplitudes_of(u, start.am, start.hw), system)
+        want = JMD.thermal_init(key, jsys, hw, U, jnp.asarray(Tm))
+        for a, b in ((got.p[0], want.p), (got.q[0], want.q)):
+            b = np.asarray(b)
+            np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                       atol=1e-12 * np.abs(b).max())
+        assert not got.p[0, :3].any() and not got.q[0, :3].any()
+    st = start.states(system, 8, 2, 1, 5)
+    u = philox.uniforms(8, 2, 1, 5, NPH, dtype=torch.float64)
+    ref = TMD.thermal_init(u, system, r.hw, r.U, Tm)
+    assert torch.equal(st.p, ref.p) and torch.equal(st.q, ref.q)
+
+
+def test_thermal_start_made_once_per_temperature(tmp_path, monkeypatch):
+    """The runner makes a temperature's amplitudes, frequencies and
+    eigenvectors once, and reuses them across calls and chunks."""
+    made = []
+    real = TMD.ThermalStart.__init__
+
+    def spy(self, hw, evecs, T, *a, **k):
+        made.append(np.asarray(T))
+        real(self, hw, evecs, T, *a, **k)
+
+    monkeypatch.setattr(TMD.ThermalStart, "__init__", spy)
+    r = _torch_runner(tmp_path)
+    r.RunEnsemble(4, chunk=2)
+    r.RunEnsemble(3, chunk=2)
+    assert len(made) == 1 and float(made[0]) == T
+    s1 = r._thermal_start(T)
+    assert r._thermal_start(float(T)) is s1
+    Tm = np.full(NPH, 310.0)
+    s2 = r._thermal_start(Tm)
+    assert s2 is not s1 and r._thermal_start(Tm.copy()) is s2
+    assert len(made) == 2
+    r.setDyn(_dyn())                             # new modes, new starts
+    assert r._thermal_start(T) is not s1
 
 
 def test_ensemble_states_windows():
@@ -278,9 +340,10 @@ def test_fused_chunk_plain_matches_jax(kind):
     rs = [torch.as_tensor(np.stack([
         np.random.default_rng(s).standard_normal(tuple(std.shape))
         for s in seeds[i]])) for i, (_, std) in enumerate(facs)]
+    system = r._build_system()
     finals, sums, ok = TE.fused_chunk(
-        r._build_system(), facs, rs, torch.as_tensor(us), r.hw, r.U, T,
-        nsteps, 0, None, skip)
+        system, facs, rs, nsteps, 0, None, skip,
+        states=TMD.thermal_init(torch.as_tensor(us), system, r.hw, r.U, T))
     assert bool(ok) and sums.shape == (ntraj, len(jbaths))
     np.testing.assert_allclose(sums.numpy(), np.stack(want), rtol=1e-9,
                                atol=1e-14)
@@ -312,13 +375,15 @@ def test_run_ensemble_plain_matches_jax(tmp_path, monkeypatch):
         _, ys = JMD.run_segment(sys_j, st, nsteps)
         want.append(np.asarray(ys["cur"])[skip:].mean(axis=0))
 
-    def injected(facs, seed, lo, hi, nm, device, dtype, dt, nmd):
+    def injected(facs, seed, lo, hi, dt, nmd, start, system):
         rs = [torch.as_tensor(np.stack([
             np.random.default_rng(s).standard_normal(tuple(std.shape))
             for s in seeds[i][lo:hi]])) for i, (_, std) in enumerate(facs)]
+        amps = K3.amplitudes_of(torch.as_tensor(us[lo:hi]), start.am,
+                                start.hw)
         return ([TN.sample_noise_from_r(r, ev, std, dt, nmd)
                  for r, (ev, std) in zip(rs, facs)],
-                torch.as_tensor(us[lo:hi]))
+                start.project(amps, system))
 
     monkeypatch.setattr(TE, "draw_chunk", injected)
     r = _torch_runner(tmp_path)

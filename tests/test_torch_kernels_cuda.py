@@ -793,7 +793,9 @@ def test_run_segment_with_ch_driver_card_against_cpu(cuda):
 # --- K3 and K3b: noise synthesis with the in-kernel Philox draw -------------
 def _noise_factors(kind, nc, nmd, device, seed=0):
     """Complex64 factors of a random PSD: one matrix (``prop``, nc >= 8)
-    or the per-frequency batch, and float32 std."""
+    or the per-frequency batch, and float32 std, as ``Factors`` (with
+    K3's packed operand)."""
+    from sclmd_tpu_torch.kernels.noise_synth import Factors
     from sclmd_tpu_torch.ops import noise as TN
     rng = np.random.default_rng(seed)
     h = nmd // 2 + 1
@@ -806,75 +808,129 @@ def _noise_factors(kind, nc, nmd, device, seed=0):
             rng.normal(size=(nc, nc)) + 1j * rng.normal(size=(nc, nc)))
             for _ in range(h)])
     ev, std = TN.noise_factors(psd, dtype=np.float32)
-    return (torch.as_tensor(TN.factor_matrix(ev), device=device),
-            torch.as_tensor(std, device=device))
+    return Factors(torch.as_tensor(TN.factor_matrix(ev), device=device),
+                   torch.as_tensor(std, device=device))
 
 
-@pytest.mark.parametrize("kind,nc,nmd", [("prop", 150, 256), ("batch", 90, 128),
-                                         ("batch", 5, 64), ("prop", 200, 64)])
+@pytest.mark.parametrize("kind,nc,nmd", [
+    ("prop", 150, 256), ("batch", 150, 64), ("prop", 90, 128),
+    ("batch", 90, 128), ("prop", 48, 128), ("batch", 48, 64),
+    ("prop", 37, 128), ("batch", 37, 64), ("batch", 5, 64),
+    ("prop", 200, 64), ("batch", 200, 32)])
 @pytest.mark.parametrize("lo,hi", [(0, 1), (3, 40), (0, 130)])
 def test_noise_synth_matches_twin(cuda, kind, nc, nmd, lo, hi):
     """K3 against its twin (the same Philox integers, float64 Box-Muller
-    and product, on the card): the flagship's single matrix (nc 150), the
-    primary's batch (nc 90), a narrow bath, and nc 200, whose matrix does
-    not fit in shared memory beside the draws (read from global memory);
-    windows that leave a trajectory tile ragged."""
+    and product, on the card), both paths: the flagship's width (nc 150),
+    the primary's (90), the sheet's (48), widths that are not a multiple
+    of 8 (37, 5: padded), and nc 200, whose U does not fit in shared
+    memory beside the draws (read from global memory); windows that leave
+    a tile ragged. The half spectrum within 1e-5 of its largest value, the
+    scaled draw within 1e-6, the edge rows real."""
     from sclmd_tpu_torch.kernels import noise_synth as K3
-    ev, std = _noise_factors(kind, nc, nmd, cuda)
+    fac = _noise_factors(kind, nc, nmd, cuda)
+    ev, std = fac
     plan = K3.launch_plan(nc, hi - lo, nmd // 2 + 1, kind == "batch", 132)
-    assert plan["smem_u"] == (nc < 160)
+    assert plan["a_smem"] == (nc <= 152)
+    scale = 1.0 / (nmd * 0.38)
     before = K3.launches
-    got = K3.noise_halfspectrum(ev, std, 7, 1, lo, hi)
+    got = K3.noise_halfspectrum(ev, std, 7, 1, lo, hi, scale,
+                                packed=fac.packed)
     draw = K3.noise_halfspectrum_cuda(ev, std, 7, 1, lo, hi, draw_only=True)
     torch.cuda.synchronize()
     assert K3.launches == before + 2
+    assert got.shape == (hi - lo, nc, nmd // 2 + 1)
     want_draw = K3.draw_plain(std.double(), 7, 1, lo, hi)
     assert _rel(draw, want_draw) < 1e-6
     want = K3.halfspectrum_plain(ev.to(torch.complex128), std.double(), 7, 1,
-                                 lo, hi)
+                                 lo, hi, scale)
     assert _rel(got, want) < 1e-5
-    again = K3.noise_halfspectrum(ev, std, 7, 1, lo, hi)
-    assert torch.equal(got, again)
+    assert not got[..., 0].imag.any() and not got[..., -1].imag.any()
+    again = K3.noise_halfspectrum(ev, std, 7, 1, lo, hi, scale)
+    assert torch.equal(got, again)       # packed here or by Factors
 
 
-@pytest.mark.parametrize("groups,ci",
-                         [(1, 32), (3, 64), (8, 16), (7, 90)])
-def test_noise_synth_same_bits_at_every_launch_shape(cuda, groups, ci):
-    """Only the work-to-thread map changes with the launch shape: every
-    shape writes the same bits, and a window of a chunk is bitwise the
-    chunk's rows."""
+@pytest.mark.parametrize("kind,nc", [("batch", 90), ("prop", 150),
+                                     ("prop", 37), ("prop", 48),
+                                     ("batch", 48), ("prop", 200)])
+def test_noise_synth_same_bits_at_every_launch_shape(cuda, kind, nc):
+    """Only the work-to-warp map changes with the launch shape: fewer
+    consumer warps (each walking several m-tiles) and a grid of other
+    sizes write the same bits; a window of a chunk is bitwise the chunk's
+    columns."""
     from sclmd_tpu_torch.kernels import noise_synth as K3
-    ev, std = _noise_factors("batch", 90, 128, cuda)
-    ref = K3.noise_halfspectrum(ev, std, 3, 0, 0, 70)
-    xs = 4 * groups * K3.R * 90
-    plan = {"groups": groups, "ci": ci, "grid": 65, "smem_u": True,
-            "smem_bytes": xs + 8 * 90 * 90}
-    got = K3.noise_halfspectrum_cuda(ev, std, 3, 0, 0, 70, plan=plan)
-    assert torch.equal(got, ref)
-    assert torch.equal(K3.noise_halfspectrum(ev, std, 3, 0, 20, 33),
+    fac = _noise_factors(kind, nc, 128, cuda)
+    ev, std = fac
+    ref = K3.noise_halfspectrum(ev, std, 3, 0, 0, 70, packed=fac.packed)
+    plan = K3.launch_plan(nc, 70, 65, kind == "batch", 132)
+    shapes = 0
+    for cw in sorted({1, 3, plan["cw"]}):
+        p = K3.launch_plan(nc, 70, 65, kind == "batch", 132, cw=cw)
+        for grid in {p["grid"], 7} if kind == "prop" else {p["grid"]}:
+            got = K3.noise_halfspectrum_cuda(ev, std, 3, 0, 0, 70,
+                                             plan=dict(p, grid=grid),
+                                             packed=fac.packed)
+            assert torch.equal(got, ref), (cw, grid)
+            shapes += 1
+    assert shapes >= 3
+    assert torch.equal(K3.noise_halfspectrum(ev, std, 3, 0, 20, 33,
+                                             packed=fac.packed),
                        ref[20:33])
 
 
-def test_noise_series_chunk_invariant(cuda):
-    """A trajectory's series (K3, then cuFFT's C2R) is bitwise the same
-    from a chunk of 256 and one of 64, and across two calls."""
+@pytest.mark.parametrize("kind,nc", [("prop", 150), ("batch", 37)])
+def test_noise_series_chunk_invariant(cuda, kind, nc):
+    """A trajectory's series (K3, then the C2R plan and the permute) is
+    bitwise the same from a chunk of 256 and one of 64, and across two
+    calls."""
     from sclmd_tpu_torch.ops.noise import schedule_noise
-    ev, std = _noise_factors("prop", 150, 1024, cuda)
-    a = schedule_noise(ev, std, 9, 1, 0, 256, 0.38, 1024)
-    b = schedule_noise(ev, std, 9, 1, 192, 256, 0.38, 1024)
+    fac = _noise_factors(kind, nc, 1024 if kind == "prop" else 256, cuda)
+    ev, std = fac
+    nmd = 2 * (std.shape[0] - 1)
+    a = schedule_noise(ev, std, 9, 1, 0, 256, 0.38, nmd, packed=fac.packed)
+    b = schedule_noise(ev, std, 9, 1, 192, 256, 0.38, nmd, packed=fac.packed)
+    assert a.shape == (256, nmd, nc) and a.is_contiguous()
     assert torch.equal(a[192:], b)
-    assert torch.equal(a, schedule_noise(ev, std, 9, 1, 0, 256, 0.38, 1024))
+    assert torch.equal(a, schedule_noise(ev, std, 9, 1, 0, 256, 0.38, nmd))
+
+
+@pytest.mark.parametrize("shape", [(3, 150, 1024), (2, 5, 90, 2048),
+                                   (70000, 3, 5), (1, 37, 33)])
+def test_noise_transpose_matches_twin(cuda, shape):
+    """The series' layout kernel: bitwise the twin's transpose, ragged
+    32 x 32 tiles and more matrices than one grid's z extent."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    x = torch.randn(shape, device=cuda)
+    before = K3.launches_transpose
+    got = K3.transpose(x)
+    assert K3.launches_transpose > before
+    assert torch.equal(got, K3.transpose_plain(x))
 
 
 def test_init_draw_matches_twin_bitwise(cuda):
-    """K3b's uniforms are exact functions of the Philox words."""
+    """K3b's uniforms are exact functions of the Philox words (bitwise);
+    its amplitudes agree with the twin's to float32 rounding, and the
+    runner's start (one launch, one product) with ``thermal_init`` on the
+    same uniforms."""
     from sclmd_tpu_torch.kernels import noise_synth as K3
     from sclmd_tpu_torch.ops import philox
     before = K3.launches_init
-    got = K3.init_uniforms(11, 2, 5, 1029, 603, cuda, torch.float32)
+    got = K3.init_uniforms_cuda(11, 2, 5, 1029, 603, cuda, torch.float32)
     assert K3.launches_init == before + 1
     want = philox.uniforms(11, 2, 5, 1029, 603)
     assert torch.equal(got.cpu(), want)
+    r = TMD.md(0.5, 64, 300.0, dyn=chain_dynmat(36, 0.05).numpy(),
+               dtype=torch.float32, device=cuda)
+    st = r._thermal_start(r.T)
+    amps = K3.thermal_amplitudes(11, 2, 5, 1029, st.am, st.hw)
+    assert K3.launches_init == before + 2 and amps.shape == (2, 1024, 36)
+    ref = K3.thermal_amplitudes_plain(11, 2, 5, 1029, st.am.double().cpu(),
+                                      st.hw.double().cpu())
+    assert _rel(amps, ref) < 1e-6
+    system = r._build_system()
+    s1 = st.states(system, 11, 2, 5, 1029)
+    s0 = TMD.thermal_init(philox.uniforms(11, 2, 5, 1029, 36).to(cuda),
+                          system, r.hw, r.U, r.T)
+    assert _rel(s1.p, s0.p) < 1e-5 and _rel(s1.q, s0.q) < 1e-5
 
 
 def test_noise_synth_refuses_float64(cuda):
@@ -884,15 +940,21 @@ def test_noise_synth_refuses_float64(cuda):
         K3.noise_halfspectrum(ev.to(torch.complex128), std.double(), 1, 0,
                               0, 4)
     with pytest.raises(TypeError, match="float64"):
-        K3.init_uniforms(1, 2, 0, 4, 9, cuda, torch.float64)
+        K3.init_uniforms_cuda(1, 2, 0, 4, 9, cuda, torch.float64)
+    am = torch.ones(9, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float64"):
+        K3.thermal_amplitudes(1, 2, 0, 4, am, am)
+    with pytest.raises(TypeError, match="float64"):
+        K3.c2r_series(torch.zeros((17, 2, 3), dtype=torch.complex128,
+                                  device=cuda), 32)
 
 
-@pytest.mark.parametrize("kind,nc", [("batch", 90), ("prop", 150)])
+@pytest.mark.parametrize("kind,nc", [("batch", 90), ("prop", 150),
+                                     ("prop", 37)])
 def test_noise_series_is_the_mirrored_spectrums_transform(cuda, kind, nc):
-    """K3 and cuFFT's C2R transform give the real part of the forward FFT
-    of the mirrored spectrum (the reference's definition), complex
-    eigenvectors included: the edge rows' imaginary parts must not reach
-    the series."""
+    """K3 and the C2R stage give the real part of the forward FFT of the
+    mirrored spectrum (the reference's definition), complex eigenvectors
+    included: the edge rows' imaginary parts must not reach the series."""
     from sclmd_tpu_torch.kernels import noise_synth as K3
     from sclmd_tpu_torch.ops import noise as TN
     from sclmd_tpu_torch.ops.functions import fourier_w2t
@@ -904,3 +966,25 @@ def test_noise_series_is_the_mirrored_spectrums_transform(cuda, kind, nc):
     want = torch.real(fourier_w2t(TN.mirror_halfspectrum(xi, nmd), dt,
                                   dim=-2))
     assert _rel(got, want) < 1e-5
+
+
+def test_c2r_series_leaves_its_input_and_neighbours(cuda):
+    """cuFFT's C2R uses its input as scratch: the public call runs on a
+    copy, so a view into a larger tensor and the memory past its end stay
+    as they were; only K3's own buffer, given up with ``consume``, is
+    transformed in place, to the same bits."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    nmd, nc = 256, 5
+    h = nmd // 2 + 1
+    big = torch.randn((40, nc, h), dtype=torch.complex64, device=cuda)
+    big[..., 0].imag.zero_()
+    big[..., -1].imag.zero_()
+    keep = big.clone()
+    y = big[3:7]                      # storage runs on past the view
+    got = K3.c2r_series(y, nmd)
+    assert torch.equal(big, keep)
+    assert _rel(got, K3.c2r_plain(keep[3:7].cpu(), nmd).to(cuda)) < 1e-5
+    buf = K3.spectrum_buffer(y.shape, cuda).copy_(y)
+    assert torch.equal(K3.c2r_series(buf, nmd, consume=True), got)
+    assert torch.equal(K3.c2r_series(y, nmd, consume=True), got)
+    assert torch.equal(big, keep)     # a view is never taken as scratch

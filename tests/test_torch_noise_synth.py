@@ -7,6 +7,8 @@ these twins on the card (``tests/test_torch_kernels_cuda.py``)."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -107,28 +109,92 @@ def _factors(kind, nc, nmd, seed=0):
     return TN.factor_matrix(ev), std
 
 
-@pytest.mark.parametrize("nc,ntraj,h,batch,groups,smem_u", [
-    (150, 1024, 513, False, 4, True),    # the flagship's electron baths
-    (150, 128, 513, False, 4, True),
-    (90, 256, 1025, False, 7, True),     # the primary junction's baths
-    (90, 1, 1025, False, 1, True),       # md.Run's one-trajectory window
-    (48, 128, 513, False, 8, True),      # the periodic sheet
-    (90, 37, 1025, True, 5, True),       # a per-frequency batch, ragged
-    (200, 512, 33, False, 3, False),     # U read from global memory
+@pytest.mark.parametrize("nc,ntraj,h,batch,cw,smem_u", [
+    (150, 1024, 513, False, 19, True),   # the flagship's electron baths
+    (150, 128, 513, False, 19, True),
+    (90, 256, 1025, False, 12, True),    # the primary junction's baths
+    (90, 1, 1025, False, 12, True),      # md.Run's one-trajectory window
+    (48, 128, 513, False, 6, True),      # the periodic sheet
+    (37, 100, 129, False, 5, True),      # padded to 40
+    (90, 37, 1025, True, 12, True),      # a per-frequency batch, ragged
+    (200, 512, 33, False, 20, False),    # U read from global memory
 ])
-def test_k3_launch_plan(nc, ntraj, h, batch, groups, smem_u):
-    """K3's launch plan at the main path's shapes: as many trajectory
-    groups as the call fills, within the kernel's launch bound and shared
-    memory, U staged where it fits."""
+def test_k3_launch_plan(nc, ntraj, h, batch, cw, smem_u):
+    """K3's launch plan at the main path's shapes: a consumer warp per
+    m-tile of U (up to 20), producers in the rest of the 24 warps, U
+    staged where it fits beside two draw tiles, a persistent CTA per SM
+    (one per frequency for a batch)."""
     plan = K3.launch_plan(nc, ntraj, h, batch, 132)
-    assert (plan["groups"], plan["smem_u"]) == (groups, smem_u)
-    assert plan["tile"] == groups * K3.R
-    assert plan["ci"] * plan["groups"] <= K3.MAX_THREADS
+    assert (plan["cw"], plan["a_smem"]) == (cw, smem_u)
+    ncp = K3.padded_width(nc)
+    assert plan["ncp"] == ncp and plan["lda"] == K3.row_stride(ncp)
+    assert plan["pw"] + plan["cw"] == K3.WARPS == 24
+    assert plan["threads"] == K3.MAX_THREADS
     assert plan["smem_bytes"] <= K3.SMEM_LIMIT
-    assert plan["smem_bytes"] == 4 * plan["tile"] * nc + (
-        8 * nc * nc if smem_u else 0)
-    assert plan["grid"] == (h if batch else min(h, plan["grid"]))
-    assert K3.launch_plan(nc, ntraj, h, batch, 132, groups=1)["groups"] == 1
+    assert plan["smem_bytes"] == 4 * 2 * ncp * K3.LDX + (
+        4 * 2 * ncp * plan["lda"] if smem_u else 0)
+    assert plan["tiles"] == -(-(ntraj if batch else h * ntraj) // K3.BN)
+    assert plan["grid"] == (h if batch else min(plan["tiles"], 132))
+    assert K3.launch_plan(nc, ntraj, h, batch, 132, cw=1)["cw"] == 1
+
+
+@settings(max_examples=200, deadline=None)
+@given(nc=st.integers(1, 400), ntraj=st.integers(1, 4096),
+       h=st.integers(2, 2049), batch=st.booleans(),
+       nsm=st.integers(1, 132), cw=st.one_of(st.none(), st.integers(1, 30)))
+def test_k3_launch_plan_limits(nc, ntraj, h, batch, nsm, cw):
+    """Any plan fits the kernel: 24 warps, at least four producers,
+    consumer warps no more than U's m-tiles, shared memory within the
+    card's limit, U's rows with a conflict-free stride (= 8 or 24 mod 32,
+    even for 8-byte loads), a tile for every column, and no more CTAs
+    than tiles (the proportional path) or one per frequency (the batch
+    path)."""
+    p = K3.launch_plan(nc, ntraj, h, batch, nsm, cw=cw)
+    assert p["ncp"] % 8 == 0 and nc <= p["ncp"] < nc + 8
+    assert p["lda"] % 32 in (8, 24) and p["ncp"] <= p["lda"] <= p["ncp"] + 8
+    assert 1 <= p["cw"] <= min(p["ncp"] // 8, K3.MAX_CONSUMER_WARPS)
+    assert p["pw"] >= 4 and p["pw"] + p["cw"] == K3.WARPS
+    assert p["threads"] == K3.MAX_THREADS
+    assert p["smem_bytes"] <= K3.SMEM_LIMIT
+    cols = ntraj if batch else h * ntraj
+    assert (p["tiles"] - 1) * K3.BN < cols <= p["tiles"] * K3.BN
+    assert p["grid"] == (h if batch else min(p["tiles"], nsm))
+    if cw is not None:
+        assert p["cw"] <= cw
+
+
+@pytest.mark.parametrize("nc,kind", [(37, "prop"), (48, "batch"),
+                                     (90, "prop"), (5, "batch")])
+def test_pack_factor_layout(nc, kind):
+    """K3's packed operand: nc zero-padded to a multiple of 8, each 8
+    channels as 16 rows (real parts, then imaginary parts), column k at
+    (k & ~7) + 2 (k & 3) + ((k >> 2) & 1) (k and k + 4 side by side),
+    every padded row, column and row tail zero; made once per bath by
+    ``Factors``, on the card only."""
+    ev, std = _factors(kind, nc, 16)
+    ev = torch.as_tensor(ev).to(torch.complex64)
+    a = K3.pack_factor(ev)
+    ncp = K3.padded_width(nc)
+    lda = K3.row_stride(ncp)
+    nu = 1 if ev.ndim == 2 else ev.shape[0]
+    assert a.shape == (nu, 2 * ncp, lda) and a.dtype == torch.float32
+    u = ev if ev.ndim == 3 else ev[None]
+    col = [(k & ~7) + 2 * (k & 3) + ((k >> 2) & 1) for k in range(nc)]
+    assert sorted(col + [(k & ~7) + 2 * (k & 3) + ((k >> 2) & 1)
+                         for k in range(nc, ncp)]) == list(range(ncp))
+    for i in range(ncp):
+        m, r = divmod(i, 8)
+        re, im = a[:, 16 * m + r], a[:, 16 * m + 8 + r]
+        if i < nc:
+            assert torch.equal(re[:, col], u[:, i].real)
+            assert torch.equal(im[:, col], u[:, i].imag)
+            rest = [c for c in range(lda) if c not in col]
+            assert not re[:, rest].any() and not im[:, rest].any()
+        else:
+            assert not re.any() and not im.any()
+    f = K3.Factors(ev, torch.as_tensor(std))
+    ev2, std2 = f
+    assert ev2 is ev and f.packed is None       # packed only on the card
 
 
 @pytest.mark.parametrize("kind", ["prop", "batch"])
@@ -150,45 +216,105 @@ def test_twin_series_matches_jax_samplers(kind):
 
 
 @pytest.mark.parametrize("kind", ["prop", "batch"])
+def test_folded_twin_series_matches_jax_samplers(kind, monkeypatch):
+    """K3's twin with its conventions (conj, 1 / (nmd dt), frequency
+    last) and the C2R stage after it give the series of the JAX
+    package's sample_noise_prop / sample_noise_parts on the same draw
+    (injected in place of the schedule's), to 1e-10 of its largest
+    value (float64, two FFT orders)."""
+    nc, nmd, dt = 9, 64, 0.4
+    ev, std = _factors(kind, nc, nmd)
+    key = jax.random.PRNGKey(7)
+    r = np.array(jax.random.normal(key, std.shape, dtype=jnp.float64))
+    monkeypatch.setattr(K3, "draw_plain", lambda sd, *a: torch.as_tensor(
+        r)[None] * sd)
+    sampler = JN.sample_noise_prop if kind == "prop" else \
+        JN.sample_noise_parts
+    want = np.asarray(sampler(key, np.ascontiguousarray(ev.real),
+                              np.ascontiguousarray(ev.imag), std, dt, nmd))
+    y = K3.noise_halfspectrum(torch.as_tensor(ev), torch.as_tensor(std), 0,
+                              0, 0, 1, 1.0 / (nmd * dt))
+    assert y.shape == (1, nc, nmd // 2 + 1)
+    assert not y[..., 0].imag.any() and not y[..., -1].imag.any()
+    got = TN.series_from_halfspectrum(y, nmd)
+    assert got.shape == (1, nmd, nc) and got.is_contiguous()
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=0,
+                               atol=1e-10 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("kind", ["prop", "batch"])
 def test_twin_halfspectrum_is_the_schedules_draw(kind):
-    """K3's twin: the schedule's normals x std through the U product, and
-    chunk windows bitwise equal to the whole."""
-    nc, nmd = 8, 32
+    """K3's twin: the schedule's normals x std through the U product,
+    folded as K3 writes it (conj x scale, frequency last, edge rows real),
+    and chunk windows bitwise equal to the whole."""
+    nc, nmd, scale = 8, 32, 0.37
     ev, std = _factors(kind, nc, nmd)
     ev, std = torch.as_tensor(ev), torch.as_tensor(std)
-    xi = K3.noise_halfspectrum(ev, std, 21, 1, 0, 6)
+    xi = K3.noise_halfspectrum(ev, std, 21, 1, 0, 6, scale)
+    assert xi.shape == (6, nc, nmd // 2 + 1) and xi.is_contiguous()
     z = P.normals(21, 1, 0, 6, std.numel()).reshape((6,) + std.shape)
     want = np.einsum("...ij,t...j->t...i", ev.numpy(), z.numpy() * std.numpy())
     want[:, [0, -1]] = want[:, [0, -1]].real      # DC and Nyquist rows
+    want = np.conj(want).transpose(0, 2, 1) * scale
     np.testing.assert_allclose(xi.numpy(), want, rtol=1e-12, atol=1e-13)
     for lo, hi in ((0, 1), (2, 5), (5, 6)):
-        assert torch.equal(K3.noise_halfspectrum(ev, std, 21, 1, lo, hi),
-                           xi[lo:hi])
+        assert torch.equal(K3.noise_halfspectrum(ev, std, 21, 1, lo, hi,
+                                                 scale), xi[lo:hi])
     assert torch.equal(K3.draw_plain(std, 21, 1, 0, 6), z * std)
 
 
 def test_hfft_equals_mirrored_fft():
-    """The C2R transform of the half spectrum is the real part of the
-    forward FFT of the mirrored spectrum, imaginary parts of rows 0 and
-    nmd/2 included."""
+    """The C2R transform of the folded half spectrum is the real part of
+    the forward FFT of the mirrored spectrum, imaginary parts of rows 0
+    and nmd/2 included; and it is hfft / (nmd dt), the form before the
+    fold."""
     nmd, dt = 64, 0.3
     rng = np.random.default_rng(3)
     xi = rng.normal(size=(3, nmd // 2 + 1, 4)) + \
         1j * rng.normal(size=(3, nmd // 2 + 1, 4))
     x = torch.as_tensor(xi)
-    got = TN.series_from_halfspectrum(x, dt, nmd)
     want = torch.real(fourier_w2t(TN.mirror_halfspectrum(x, nmd), dt,
                                   dim=-2))
+    y = TN.fold_halfspectrum(x, 1.0 / (nmd * dt))
+    assert y.shape == (3, 4, nmd // 2 + 1) and y.is_contiguous()
+    got = TN.series_from_halfspectrum(y, nmd)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-14 * float(want.abs().max()))
     assert got.is_contiguous() and got.shape == (3, nmd, 4)
+    np.testing.assert_allclose(
+        got.numpy(), (torch.fft.hfft(x, n=nmd, dim=-2) / (nmd * dt)).numpy(),
+        rtol=0, atol=1e-14 * float(want.abs().max()))
     # the real series does not keep the edge rows' imaginary parts
     dropped = TN.drop_edge_imag_(x.clone())
     assert not dropped[:, [0, -1]].imag.any()
     assert torch.equal(dropped[:, 1:-1], x[:, 1:-1])
     np.testing.assert_allclose(
-        TN.series_from_halfspectrum(dropped, dt, nmd).numpy(), want.numpy(),
+        TN.synthesize_series(dropped, dt, nmd).numpy(), want.numpy(),
         rtol=0, atol=1e-14 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("nmd,ntraj,nc", [(256, 64, 37), (1024, 64, 150),
+                                          (2048, 1, 90), (16384, 2, 37)])
+def test_c2r_batches(nmd, ntraj, nc):
+    """The C2R stage's fixed batch per nmd (~32 MB of output, whatever the
+    chunk), and K3's output buffer running on to whole batches."""
+    b0 = K3.c2r_batch(nmd)
+    assert b0 == max(1, 2 ** 23 // nmd) and b0 * nmd <= 2 ** 23
+    y = K3.spectrum_buffer((ntraj, nc, nmd // 2 + 1), "cpu")
+    assert y.shape == (ntraj, nc, nmd // 2 + 1) and y.is_contiguous()
+    nb = ntraj * nc
+    assert y.untyped_storage().nbytes() == \
+        8 * (nmd // 2 + 1) * -(-nb // b0) * b0
+
+
+def test_transpose_twin():
+    """The series' layout step: (..., r, c) -> (..., c, r) contiguous,
+    any leading dims (the card's kernel is held to this twin)."""
+    x = torch.arange(2 * 3 * 5 * 7, dtype=torch.float32).reshape(2, 3, 5, 7)
+    got = K3.transpose(x)
+    assert got.shape == (2, 3, 7, 5) and got.is_contiguous()
+    assert torch.equal(got, x.transpose(-1, -2))
+    assert torch.equal(K3.transpose_plain(x), got)
 
 
 def test_schedule_noise_windows_and_stream(tmp_path):

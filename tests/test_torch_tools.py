@@ -92,12 +92,15 @@ def test_profile_spans_cover_run_ensemble(tmp_path):
             if k not in card_only and not v["calls"]] == []
     assert spans["K1_gle_block"]["calls"] == 2
     assert spans["K2_block_corr"]["calls"] == 4
-    # noise synthesis (K3 on the card): one call per bath for each of the
-    # two one-chunk ensembles and for md.Run's one run; the thermal
-    # phases (K3b) once per ensemble chunk and once for md.Run's start
+    # noise synthesis (K3 and the C2R stage on the card): one call per
+    # bath for each of the two one-chunk ensembles and for md.Run's one
+    # run; the thermal start (K3b) once per ensemble chunk and once for
+    # md.Run's start
     assert spans["noise_synth"]["calls"] == 6
     assert spans["noise_synthesis"]["calls"] == 6
+    assert spans["noise_c2r"]["calls"] == 6
     assert spans["init_draws"]["calls"] == 3
+    assert spans["thermal_init"]["calls"] == 3
 
 
 @pytest.mark.parametrize("nc,block", [(3, 4), (8, 2), (90, 3)])

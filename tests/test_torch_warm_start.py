@@ -169,13 +169,13 @@ def test_steady_init_starts_at_mode_temps(tmp_path, monkeypatch):
     """Unequal temperatures: the thermal start receives the JAX package's
     per-mode temperatures."""
     seen = []
-    real = TE.thermal_init
+    real = TMD.md._thermal_start
 
-    def spy(us, system, hw, evecs, T):
+    def spy(self, T):
         seen.append(np.asarray(T))
-        return real(us, system, hw, evecs, T)
+        return real(self, T)
 
-    monkeypatch.setattr(TE, "thermal_init", spy)
+    monkeypatch.setattr(TMD.md, "_thermal_start", spy)
     r = _runners(tmp_path)
     means = r.RunEnsemble(2, steady_init=True)
     assert np.isfinite(means).all()
