@@ -105,7 +105,35 @@ not 0 and no result line is printed):
    harmonic flagship (``antithetic_run`` with the periodic warm start,
    256 trajectories, nmd 2^14, T 300 K, delta T 10 %, seed 11, float32)
    against ``j_nat`` of ``scripts/flagship_negf.npz``: ``|dev_pct| <= 2``
-   and ``sem_pct <= 1``.
+   and ``sem_pct <= 1``;
+18. K9 ``sw_force`` on the 3,456-atom silicon slab of
+   ``sclmd_tpu_torch.tools.slab`` (nph 10,368, a table 16 wide, periodic
+   cell): against its float32 twin on the card and its float64 twin on
+   the CPU at 4 trajectories of thermal displacements (force and energy
+   within RTOL of the largest), bitwise repeats, zero at rest; at the
+   run's 64 trajectories against its float32 twin again, a bitwise
+   repeat, its time, its twin's and its bound; K3 at the slab's bath
+   factors (nc 864, U read from global memory) and 64 trajectories
+   against its twins as phase 16 holds it, and timed; K7 at the slab's
+   shapes and 64 trajectories on its unstaged route, against its twins
+   and timed; then
+   ``RunEnsemble(64, nsteps=1024, npie=2, checkpoint=True)`` with the
+   launch counters read around it (K9 twice a step, K7 three times, all
+   on its unstaged route, K3 once per bath; no K6: baths of memory
+   length 1 read no history): finite currents, ``MDE.npz``, the same
+   means within RTOL from one segment, a second call after the kappa
+   files are deleted resuming from ``MDE.npz`` (no K9 launch, the same
+   means and files), another chunk refused as a stale checkpoint, and
+   the heat current's sign from the same draws at swapped lead
+   temperatures;
+19. K10 ``eam_force`` on the 1,728-atom gold slab (nph 5,184, analytic
+   Sutton-Chen and its ``sutton_chen_tables`` tabulation): each mode
+   against its twins as in phase 18, the tabulated force within the
+   splines' own error (the two float64 twins' difference) of the
+   analytic one at the same geometry, K3 at nc 432, K7 (staged), the
+   analytic slab through every check of phase 18's run, and the
+   tabulated one through ``RunEnsemble(64, npie=2, checkpoint=True)``
+   with its launch counts.
 
 The workloads are the primary junction of bench.py
 (``sclmd_tpu_torch.tools.primary``: a 100-atom harmonic chain, nph 300,
@@ -114,7 +142,8 @@ dt 0.25/0.658, T 300 K +- 5 %) and its harmonic flagship
 (``sclmd_tpu_torch.tools.flagship``: the 201-atom C/H junction, nph 603,
 two electron baths of 150 DOFs, 120 DOFs fixed, nmd 1024; many-body:
 the same junction with ``CHDriver`` forces on the npz geometry), and the
-periodic graphene sheet of ``sclmd_tpu_torch.tools.sheet``. The line
+periodic graphene sheet of ``sclmd_tpu_torch.tools.sheet``, and the
+silicon and gold slabs of ``sclmd_tpu_torch.tools.slab``. The line
 before the last is the card's name and power limit; the last line is
 the result JSON; the line before it lists every kernel with its
 launches on the main path, error against its twin, time, twin time,
@@ -403,6 +432,10 @@ def main():
     k3_abs = check_noise_synth(k3_ops)
     phase_crosscheck(dev)
 
+    # 18. the silicon slab (K9), 19. the gold slab (K10)
+    k9 = phase_si_slab(dev)
+    k10 = phase_gold_slab(dev)
+
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
     # K6 at one trajectory; K7 at one primary trajectory (two thirds of
@@ -417,7 +450,7 @@ def main():
     # the series' layout kernel at the flagship's largest chunk
     tr_t = times["noise_synth"]["flagship_1024"]["transpose"]
     main_runs = [launches, run_launches, ens_launches, mb_launches,
-                 k8["launches"]]
+                 k8["launches"], k9["launches"], k10["launches"]]
 
     def row(name, source, replaces, launches_, err, tm):
         return {"name": name, "route": "cuda", "source": source,
@@ -443,7 +476,10 @@ def main():
         row("bath_force", "sclmd_tpu_torch/csrc/bath_force.cu",
             "a5170d2:sclmd_tpu/ops/kernels.py:98",
             run_launches["bath_force"] + ens_launches["bath_force"]
-            + mb_launches["bath_force"], k7_abs, k7_t),
+            + mb_launches["bath_force"] + k9["launches"]["bath_force"]
+            + k10["launches"]["bath_force"],
+            max(k7_abs, k9["baths"]["k7_abs_err"],
+                k10["baths"]["k7_abs_err"]), k7_t),
         row("ch_force", "sclmd_tpu_torch/csrc/ch_force.cu",
             "sclmd_tpu/models/tersoff.py:186", mb_launches["ch_force"],
             k5_abs, k5_t),
@@ -452,8 +488,9 @@ def main():
             k8["launches"]["tersoff_force"], k8["abs"], k8["times"]),
         row("noise_synth", "sclmd_tpu_torch/csrc/noise_synth.cu",
             "sclmd_tpu/ops/noise.py:186",
-            sum(c["noise_synth"] for c in main_runs), k3_abs["noise_synth"],
-            k3_t),
+            sum(c["noise_synth"] for c in main_runs),
+            max(k3_abs["noise_synth"], k9["baths"]["k3_abs_err"],
+                k10["baths"]["k3_abs_err"]), k3_t),
         row("init_draw", "sclmd_tpu_torch/csrc/noise_synth.cu",
             "sclmd_tpu/md.py:120",
             sum(c["init_draw"] for c in main_runs), k3_abs["init_draw"],
@@ -461,7 +498,14 @@ def main():
         row("noise_transpose", "sclmd_tpu_torch/csrc/noise_synth.cu",
             "sclmd_tpu/ops/noise.py:205",
             sum(c["noise_transpose"] for c in main_runs),
-            k3_abs["noise_transpose"], tr_t),
+            max(k3_abs["noise_transpose"], k9["baths"]["transpose_abs_err"],
+                k10["baths"]["transpose_abs_err"]), tr_t),
+        row("sw_force", "sclmd_tpu_torch/csrc/sw_force.cu",
+            "sclmd_tpu/models/sw.py:63", k9["launches"]["sw_force"],
+            k9["abs"], k9["times"]),
+        row("eam_force", "sclmd_tpu_torch/csrc/eam_force.cu",
+            "sclmd_tpu/models/eam.py:72", k10["launches"]["eam_force"],
+            k10["abs"], k10["times"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1450,6 +1494,72 @@ def _expected_lag_cov(ev, std, dt, nmd, lag):
     return float(c.mean()) / (nmd * dt) ** 2
 
 
+def check_k3_case(phase, name, fac, dt, nmd, n, lo):
+    """K3 at one shape against its twins: the draw, the folded half
+    spectrum (float64 twin), the C2R series and the layout kernel; a
+    bitwise repeat, the same bits at other launch shapes, real edge
+    rows, and the C2R call leaving its input as it was. Returns the
+    largest absolute errors of the half spectrum and of the transpose."""
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    ev, std = fac
+    h, nc = std.shape
+    y = _k3(fac, dt, nmd, lo, lo + n, stream=1)
+    again = _k3(fac, dt, nmd, lo, lo + n, stream=1)
+    shapes, same_bits = [], True
+    full = K3.launch_plan(nc, n, h, ev.ndim == 3, nsm)
+    for cw in sorted({1, max(1, full["cw"] // 2), full["cw"]}):
+        p = K3.launch_plan(nc, n, h, ev.ndim == 3, nsm, cw=cw)
+        grids = [p["grid"]] if ev.ndim == 3 else \
+            sorted({p["grid"], max(1, p["grid"] // 3)})
+        for grid in grids:
+            shapes.append([cw, grid])
+            same_bits &= bool(torch.equal(_k3(
+                fac, dt, nmd, lo, lo + n, stream=1,
+                plan=dict(p, grid=grid)), y))
+    draw = _k3(fac, dt, nmd, lo, lo + n, stream=1, draw_only=True)
+    want_draw = K3.draw_plain(std.double(), K3_SEED, 1, lo, lo + n)
+    draw_rel = rel_err(draw, want_draw)[0]
+    del draw, want_draw
+    want = K3.halfspectrum_plain(ev.to(torch.complex128), std.double(),
+                                 K3_SEED, 1, lo, lo + n,
+                                 1.0 / (nmd * dt))
+    xi_rel, xi_abs = rel_err(y, want)
+    edges_real = not (y[..., 0].imag.any() or y[..., -1].imag.any())
+    bitwise = bool(torch.equal(y, again))
+    del again
+    xs = torch.randn((n, nc, nmd), device=std.device)
+    tr_abs = float((K3.transpose(xs) - K3.transpose_plain(xs)).abs()
+                   .max())
+    del xs
+    # the public call leaves its input as it was; the main path's in
+    # place run on K3's buffer gives the same bits
+    y0 = y.clone()
+    series = K3.c2r_series(y, nmd)
+    input_kept = bool(torch.equal(y, y0))
+    series_rel = rel_err(series, K3.c2r_plain(want, nmd))[0]
+    in_place_same = bool(torch.equal(
+        K3.c2r_series(y, nmd, consume=True), series))
+    del want, y, y0, series
+    out = {"phase": phase, "case": name, "ntraj": n, "lo": lo, "nc": nc,
+           "factors": "batch" if ev.ndim == 3 else "one matrix",
+           "plan": K3.launch_plan(nc, n, h, ev.ndim == 3, nsm),
+           "draw_rel_err": draw_rel, "draw_rtol": DRAW_RTOL,
+           "halfspectrum_rel_err": xi_rel, "series_rel_err": series_rel,
+           "rtol": RTOL, "bitwise_repeat": bitwise,
+           "edge_rows_real": edges_real, "transpose_abs_err": tr_abs,
+           "launch_shapes_cw_grid": shapes,
+           "same_bits_every_shape": same_bits,
+           "c2r_input_kept": input_kept,
+           "c2r_in_place_same_bits": in_place_same}
+    print(json.dumps(out), flush=True)
+    assert draw_rel <= DRAW_RTOL and xi_rel <= RTOL and \
+        series_rel <= RTOL, out
+    assert bitwise and same_bits and edges_real and tr_abs == 0.0 \
+        and input_kept and in_place_same, out
+    return xi_abs, tr_abs
+
+
 def check_noise_synth(ops, nstat=1024):
     """Phase 16: K3 and K3b against their twins, bitwise repeats, the same
     bits at every launch shape, chunk invariance, and the statistics of a
@@ -1460,65 +1570,10 @@ def check_noise_synth(ops, nstat=1024):
     from sclmd_tpu_torch.ops import philox
     from sclmd_tpu_torch.ops.noise import schedule_noise
     worst = {"noise_synth": 0.0, "init_draw": 0.0, "noise_transpose": 0.0}
-    nsm = torch.cuda.get_device_properties(0).multi_processor_count
     for name, (fac, dt, nmd, n, lo) in ops["k3"].items():
-        ev, std = fac
-        h, nc = std.shape
-        y = _k3(fac, dt, nmd, lo, lo + n, stream=1)
-        again = _k3(fac, dt, nmd, lo, lo + n, stream=1)
-        shapes, same_bits = [], True
-        full = K3.launch_plan(nc, n, h, ev.ndim == 3, nsm)
-        for cw in sorted({1, max(1, full["cw"] // 2), full["cw"]}):
-            p = K3.launch_plan(nc, n, h, ev.ndim == 3, nsm, cw=cw)
-            grids = [p["grid"]] if ev.ndim == 3 else \
-                sorted({p["grid"], max(1, p["grid"] // 3)})
-            for grid in grids:
-                shapes.append([cw, grid])
-                same_bits &= bool(torch.equal(_k3(
-                    fac, dt, nmd, lo, lo + n, stream=1,
-                    plan=dict(p, grid=grid)), y))
-        draw = _k3(fac, dt, nmd, lo, lo + n, stream=1, draw_only=True)
-        want_draw = K3.draw_plain(std.double(), K3_SEED, 1, lo, lo + n)
-        draw_rel = rel_err(draw, want_draw)[0]
-        del draw, want_draw
-        want = K3.halfspectrum_plain(ev.to(torch.complex128), std.double(),
-                                     K3_SEED, 1, lo, lo + n,
-                                     1.0 / (nmd * dt))
-        xi_rel, xi_abs = rel_err(y, want)
-        edges_real = not (y[..., 0].imag.any() or y[..., -1].imag.any())
-        bitwise = bool(torch.equal(y, again))
-        del again
-        xs = torch.randn((n, nc, nmd), device=std.device)
-        tr_abs = float((K3.transpose(xs) - K3.transpose_plain(xs)).abs()
-                       .max())
-        worst["noise_transpose"] = max(worst["noise_transpose"], tr_abs)
-        del xs
-        # the public call leaves its input as it was; the main path's in
-        # place run on K3's buffer gives the same bits
-        y0 = y.clone()
-        series = K3.c2r_series(y, nmd)
-        input_kept = bool(torch.equal(y, y0))
-        series_rel = rel_err(series, K3.c2r_plain(want, nmd))[0]
-        in_place_same = bool(torch.equal(
-            K3.c2r_series(y, nmd, consume=True), series))
-        del want, y, y0, series
+        xi_abs, tr_abs = check_k3_case(16, name, fac, dt, nmd, n, lo)
         worst["noise_synth"] = max(worst["noise_synth"], xi_abs)
-        out = {"phase": 16, "case": name, "ntraj": n, "lo": lo, "nc": nc,
-               "factors": "batch" if ev.ndim == 3 else "one matrix",
-               "plan": K3.launch_plan(nc, n, h, ev.ndim == 3, nsm),
-               "draw_rel_err": draw_rel, "draw_rtol": DRAW_RTOL,
-               "halfspectrum_rel_err": xi_rel, "series_rel_err": series_rel,
-               "rtol": RTOL, "bitwise_repeat": bitwise,
-               "edge_rows_real": edges_real, "transpose_abs_err": tr_abs,
-               "launch_shapes_cw_grid": shapes,
-               "same_bits_every_shape": same_bits,
-               "c2r_input_kept": input_kept,
-               "c2r_in_place_same_bits": in_place_same}
-        print(json.dumps(out), flush=True)
-        assert draw_rel <= DRAW_RTOL and xi_rel <= RTOL and \
-            series_rel <= RTOL, out
-        assert bitwise and same_bits and edges_real and tr_abs == 0.0 \
-            and input_kept and in_place_same, out
+        worst["noise_transpose"] = max(worst["noise_transpose"], tr_abs)
     for name, (r, m, ulo) in ops["k3b"].items():
         st = r._thermal_start(r.T)
         nph, dev = st.am.numel(), st.am.device
@@ -1634,6 +1689,253 @@ def phase_crosscheck(dev, ntraj=256):
         out["launches"]
     assert np.isfinite(j).all(), j
     assert abs(dev_pct) <= GATE_DEV_PCT and sem_pct <= GATE_SEM_PCT, out
+
+
+# --- the slabs: K9 (Stillinger-Weber) and K10 (EAM) -------------------------
+SLAB_NTRAJ = 64           # RunEnsemble trajectories of phases 18 and 19
+SLAB_NSTEPS, SLAB_NPIE = 1024, 2
+SLAB_CHECK_NTRAJ = 4      # trajectories of the checks against the twins
+
+
+def slab_kernel_checks(dev, phase, name, drv, ref, mod, seed):
+    """K9 or K10 on a slab at thermal displacements of SLAB_CHECK_NTRAJ
+    trajectories: against its float32 twin on the card and its float64
+    twin on the CPU (force and energy within RTOL of the largest), a
+    bitwise repeat and zero at rest; at the RunEnsemble's SLAB_NTRAJ
+    trajectories against its float32 twin again (force and energy within
+    RTOL) with a bitwise repeat; then its times there with its float32
+    twin's (no single library call computes it) and the bound: q read
+    and f written once per trajectory, the table once, and the
+    operations this geometry needs (``work_counts``) at the float32
+    peak. Returns (the largest absolute error against either twin,
+    times, q)."""
+    q = _thermal_q(drv, SLAB_CHECK_NTRAJ, dev, seed)
+    err = _against_float64(drv, ref, q, phase, name)
+    e, f = drv.energy_force_torch(q)
+    e32, f32 = drv.kernel.plain(q, energy=True)
+    rel32, e_rel32 = rel_err(f, f32)[0], rel_err(e, e32)[0]
+    print(json.dumps({"phase": phase, "case": name,
+                      "rel_err_float32_twin": rel32,
+                      "energy_rel_err_float32_twin": e_rel32,
+                      "rtol": RTOL}), flush=True)
+    assert rel32 <= RTOL and e_rel32 <= RTOL, \
+        f"{name}: the kernel disagrees with its float32 twin: {rel32}, " \
+        f"{e_rel32}"
+    n = SLAB_NTRAJ
+    qn = _thermal_q(drv, n, dev, seed + 1)
+    e, f = drv.energy_force_torch(qn)
+    e32, f32 = drv.kernel.plain(qn, energy=True)
+    (rel_n, abs_n), e_rel_n = rel_err(f, f32), rel_err(e, e32)[0]
+    bitwise = bool(torch.equal(drv.force_torch(qn), f))
+    out = {"phase": phase, "case": name, "ntraj": n,
+           "rel_err_float32_twin": rel_n, "max_abs_err_float32_twin": abs_n,
+           "energy_rel_err_float32_twin": e_rel_n, "bitwise_repeat": bitwise,
+           "rtol": RTOL}
+    print(json.dumps(out), flush=True)
+    assert rel_n <= RTOL and e_rel_n <= RTOL and bitwise, out
+    err = max(err, abs_n)
+    del e, f, e32, f32
+    w = mod.work_counts(drv.kernel.cuda.pack)
+    t = _timed(lambda: drv.force_torch(qn), lambda: drv.kernel.plain(qn),
+               None, n * w["ops"], n * w["bytes"] + w["table_bytes"], 20, 3)
+    t["work"] = w
+    return err, t, q
+
+
+def slab_runs(dev, phase, kind, drv, mod, name, full=True):
+    """The slab's ``RunEnsemble(SLAB_NTRAJ, npie=SLAB_NPIE,
+    checkpoint=True)`` with the launch counters read around it (the
+    force kernel twice a step, K7 three times, on its unstaged route for
+    a system too wide to stage, K3 once per bath; no K6: baths of memory
+    length 1 read no history; no K3b: the slab starts at rest; no
+    ``torch.Generator``): finite currents and ``MDE.npz``. With ``full``
+    also: the same draws in one segment (``npie=1``) within RTOL; a
+    second call in the same outdir after the kappa files are deleted
+    resumes from ``MDE.npz`` (no force launch) with the same means and
+    files; another chunk raises the stale-checkpoint ValueError; the
+    same draws at swapped lead temperatures give heat flowing from the
+    hot lead to the cold one."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import conv_tails as K6
+    from sclmd_tpu_torch.tools import slab as SL
+
+    hot, cold = SL.T * (1 + SL.DELTA / 2), SL.T * (1 - SL.DELTA / 2)
+    outdir = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    r = SL.slab_runner(kind, torch.float32, dev, outdir, driver=drv)
+    bath_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mod.reset_count()
+    K7.reset_count()
+    K6.reset_count()
+    reset_k3()
+    kw = dict(nsteps=SLAB_NSTEPS, npie=SLAB_NPIE)
+    with GeneratorCount() as gens:
+        t0 = time.perf_counter()
+        means = r.RunEnsemble(SLAB_NTRAJ, checkpoint=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: mod.launches, "bath_force": K7.launches,
+                "bath_force_wide": K7.launches_wide,
+                "conv_tails": K6.launches, **k3_counts()}
+    wide = r.nph > 9000
+    assert gens.n == 0, gens.n
+    assert launches == {name: 2 * SLAB_NSTEPS,
+                        "bath_force": 3 * SLAB_NSTEPS,
+                        "bath_force_wide": 3 * SLAB_NSTEPS if wide else 0,
+                        "conv_tails": 0, "noise_synth": 2, "init_draw": 0,
+                        "noise_transpose": 2}, launches
+    ke = r.energy(r.state)
+    assert means.shape == (SLAB_NTRAJ, 2) and np.isfinite(means).all()
+    assert np.isfinite(ke) and ke > 0.0, ke
+    ck = os.path.join(outdir, "MDE.npz")
+    assert os.path.isfile(ck)
+    out = {"phase": phase, "case": kind, "nph": r.nph,
+           "bath_dofs": [b.nc for b in r.baths], "bath_setup_s": bath_s,
+           "launches": launches,
+           "e2e": {SLAB_NTRAJ: {
+               "s": wall, "traj_steps_per_s": SLAB_NTRAJ * SLAB_NSTEPS / wall,
+               "kinetic_energy_end": ke,
+               "J_left": float(means[:, 0].mean()),
+               "J_right": float(means[:, 1].mean())}},
+           "checkpoint_mb": os.path.getsize(ck) / 2 ** 20}
+    if not full:
+        print(json.dumps(out), flush=True)
+        return launches
+
+    r1 = SL.slab_runner(kind, torch.float32, dev, tempfile.mkdtemp(),
+                        driver=drv)
+    t0 = time.perf_counter()
+    fused = r1.RunEnsemble(SLAB_NTRAJ, nsteps=SLAB_NSTEPS)
+    torch.cuda.synchronize()
+    out["e2e_npie1_s"] = time.perf_counter() - t0
+    out["segmented_vs_one_rel"] = rel_err(torch.as_tensor(means),
+                                          torch.as_tensor(fused))[0]
+    assert out["segmented_vs_one_rel"] <= RTOL, out
+
+    for f in os.listdir(outdir):
+        if f.startswith("kappa."):
+            os.remove(os.path.join(outdir, f))
+    mod.reset_count()
+    again = r.RunEnsemble(SLAB_NTRAJ, checkpoint=True, **kw)
+    nfiles = len([f for f in os.listdir(outdir) if f.startswith("kappa.")])
+    out["resumed"] = {"same_means": bool(np.array_equal(again, means)),
+                      "force_launches": mod.launches, "kappa_files": nfiles}
+    assert out["resumed"] == {"same_means": True, "force_launches": 0,
+                              "kappa_files": 2 * SLAB_NTRAJ}, out
+    try:
+        r.RunEnsemble(SLAB_NTRAJ, checkpoint=True, chunk=SLAB_NTRAJ // 2,
+                      **kw)
+        raise AssertionError("a stale MDE.npz was not refused")
+    except ValueError as e:
+        assert "stale checkpoint" in str(e), e
+        out["stale_refused"] = True
+
+    rr = SL.slab_runner(kind, torch.float32, dev, tempfile.mkdtemp(),
+                        temps=(cold, hot), driver=drv)
+    rev = rr.RunEnsemble(SLAB_NTRAJ, **kw)
+    j = (means - rev) / 2                     # common random numbers
+    out["J_left"], out["J_right"] = float(j[:, 0].mean()), \
+        float(j[:, 1].mean())
+    out["J_sem"] = (j.std(axis=0) / np.sqrt(SLAB_NTRAJ)).tolist()
+    print(json.dumps(out), flush=True)
+    assert np.isfinite(rev).all() and out["J_left"] > 0 > out["J_right"], out
+    return launches
+
+
+def slab_bath_kernels(dev, phase, drv, kind):
+    """K3 at the slab's bath factors (one proportional matrix, nc 864 or
+    432, nmd 1024) at SLAB_NTRAJ trajectories against its twins, as
+    phase 16 holds it (``check_k3_case``: at nc 864 U is read from global
+    memory), and its times as phase 7 takes them; K7's three stages at
+    the slab's shapes and SLAB_NTRAJ trajectories against their twins on
+    the same tensors (every output within RTOL of its largest), the
+    route they take (staged or not), and their times, as phase 7 takes
+    them."""
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors
+    from sclmd_tpu_torch.tools import slab as SL
+    from sclmd_tpu_torch.tools.plain_bench import K7Case
+    r = SL.slab_runner(kind, torch.float32, dev, tempfile.mkdtemp(),
+                       driver=drv)
+    fac = bath_factors(r.baths, dev)[0]
+    k3_abs, tr_abs = check_k3_case(phase, f"{kind}_slab_nc{r.baths[0].nc}",
+                                   fac, r.dt, r.nmd, SLAB_NTRAJ, 0)
+    k3 = k3_times(fac, r.dt, r.nmd, SLAB_NTRAJ)
+    c = K7Case(r.baths, SLAB_NTRAJ, r.nph, r.nmd, r.dt, dev, 18)
+    got, want = k7_outputs(c, True), k7_outputs(c, False)
+    k7_err = [rel_err(got[k], want[k]) for k in want]
+    k7_rel = max(e[0] for e in k7_err)
+    assert k7_rel <= RTOL, f"K7 at the slab's shapes: {k7_rel}"
+    return {"k3": k3, "k3_abs_err": k3_abs, "transpose_abs_err": tr_abs,
+            "k7": k7_times(c), "k7_rel_err": k7_rel,
+            "k7_abs_err": max(e[1] for e in k7_err),
+            "k7_staged": c.force.stages[0].staged,
+            "k7_tile": c.force.tile}
+
+
+def phase_si_slab(dev):
+    """Phase 18: the 3,456-atom silicon slab under Stillinger-Weber
+    forces, K9."""
+    from sclmd_tpu_torch.kernels import sw_force as K9
+    from sclmd_tpu_torch.tools import slab as SL
+
+    t0 = time.perf_counter()
+    drv = SL.slab_driver("sw", torch.float32, dev)
+    ref = SL.slab_driver("sw", torch.float64, "cpu")
+    setup_s = time.perf_counter() - t0
+    assert drv.kernel.cuda is not None
+    err, t, _ = slab_kernel_checks(dev, 18, "sw_slab", drv, ref, K9, 18)
+    del ref
+    baths = slab_bath_kernels(dev, 18, drv, "sw")
+    print(json.dumps({"phase": 18, "driver_setup_s": setup_s, "ms": t,
+                      "baths": baths}), flush=True)
+    assert baths["k7_staged"] == 0
+    launches = slab_runs(dev, 18, "sw", drv, K9, "sw_force")
+    return {"launches": launches, "abs": err, "times": t, "baths": baths}
+
+
+def phase_gold_slab(dev):
+    """Phase 19: the 1,728-atom gold slab under EAM forces, K10 in both
+    modes: analytic Sutton-Chen and the same set tabulated."""
+    from sclmd_tpu_torch.kernels import eam_force as K10
+    from sclmd_tpu_torch.tools import slab as SL
+
+    out, errs, q = {}, [], None
+    drvs = {}
+    for kind in ("eam", "eam_tab"):
+        t0 = time.perf_counter()
+        drv = SL.slab_driver(kind, torch.float32, dev)
+        ref = SL.slab_driver(kind, torch.float64, "cpu")
+        out[kind] = {"driver_setup_s": time.perf_counter() - t0}
+        assert drv.kernel.cuda is not None
+        assert drv.kernel.cuda.pack["mode"] == (kind == "eam_tab")
+        err, t, q = slab_kernel_checks(dev, 19, f"gold_{kind}", drv, ref,
+                                       K10, 19)
+        out[kind]["ms"] = t
+        errs.append(err)
+        drvs[kind] = (drv, ref)
+    # the tabulation against the analytic set at the same geometry (the
+    # same seed gave both routes the same q): within the splines' own
+    # error, measured between the two float64 twins, plus float32
+    # rounding
+    (an, an64), (tab, tab64) = drvs["eam"], drvs["eam_tab"]
+    qc = q.double().cpu()
+    spline_err = float((tab64.force_torch(qc) - an64.force_torch(qc))
+                       .abs().max())
+    f_an = an.force_torch(q)
+    gap = float((tab.force_torch(q) - f_an).abs().max())
+    bound = spline_err + RTOL * float(f_an.abs().max())
+    out["tabulated_vs_analytic"] = {"max_abs": gap, "spline_err": spline_err,
+                                    "bound": bound}
+    baths = slab_bath_kernels(dev, 19, an, "eam")
+    print(json.dumps({"phase": 19, **out, "baths": baths}), flush=True)
+    assert gap <= bound, out["tabulated_vs_analytic"]
+    del an64, tab64, drvs
+    la = slab_runs(dev, 19, "eam", an, K10, "eam_force")
+    lt = slab_runs(dev, 19, "eam_tab", tab, K10, "eam_force", full=False)
+    launches = {k: la[k] + lt[k] for k in la}
+    return {"launches": launches, "abs": max(errs),
+            "times": out["eam"]["ms"], "baths": baths}
 
 
 if __name__ == "__main__":

@@ -446,10 +446,10 @@ def phbath(T, cats, debye, nw, dt, nmd, ml=None, mcof=2.0,
         hlen = int(nmd) // 2
         dw = 2.0 * np.pi / dt / nmd
         wlh = dw * np.arange(hlen + 1)
-        psd = NZ.phonon_psd(wlh, gamma_np, gwl_np, float(T), wmax,
-                            classical, zpmotion,
-                            delta=float(dt) * int(nmd))
-        nevecs, nstd = NZ.noise_factors(psd, dtype=dtype)
+        nevecs, nstd = NZ.phonon_factors(wlh, gamma_np, gwl_np, float(T),
+                                         wmax, classical, zpmotion,
+                                         delta=float(dt) * int(nmd),
+                                         dtype=dtype)
 
     return PhBath(
         cids=cats_np, cs=_contig_start(cats_np), T=float(T),

@@ -95,32 +95,33 @@ def _closure(fn) -> dict:
 
 
 def _cell_of(c: dict):
-    return None if c.get("cell_j") is None else np.asarray(c["cell_j"],
-                                                           float)
+    return None if c.get("cell_j") is None else np.array(c["cell_j"], float)
 
 
 def from_jax_driver(drv, device=None, dtype=None, **overrides):
     """A ``sclmd_tpu`` force driver (``HarmonicDriver``, ``PairDriver``,
-    ``TersoffDriver``, ``CHDriver``) as the port's, on ``device``
-    (default: the CUDA card), in the JAX driver's dtype unless ``dtype``
-    is given.
+    ``TersoffDriver``, ``CHDriver``, ``SWDriver``, ``EAMDriver``) as the
+    port's, on ``device`` (default: the CUDA card), in the JAX driver's
+    dtype unless ``dtype`` is given.
 
     The JAX drivers keep their parameters only inside their energy
     function, so they are read from its closure: the cell, the width of
-    the neighbour table, the parameter sets. What the closure does not
-    hold (the table's skin, a multi-element parameter table) takes the
-    constructor's default unless passed in ``overrides``; the rebuilt
-    neighbour table or pair list is held against the JAX driver's, and a
-    mismatch raises."""
+    the neighbour table, the parameter sets; an EAM driver's setfl table
+    is its ``table``. What the closure does not hold (the table's skin, a
+    multi-element parameter table) takes the constructor's default unless
+    passed in ``overrides``; the rebuilt neighbour table or pair list is
+    held against the JAX driver's, and a mismatch raises."""
+    from sclmd_tpu_torch.models.eam import EAMDriver
     from sclmd_tpu_torch.models.harmonic import HarmonicDriver
     from sclmd_tpu_torch.models.hydrocarbon import CHDriver
     from sclmd_tpu_torch.models.pair import PairDriver
+    from sclmd_tpu_torch.models.sw import SWDriver
     from sclmd_tpu_torch.models.tersoff import TersoffDriver
 
     device = resolve_device(device)
     kind = type(drv).__name__
     if kind not in ("HarmonicDriver", "PairDriver", "TersoffDriver",
-                    "CHDriver"):
+                    "CHDriver", "SWDriver", "EAMDriver"):
         raise TypeError(f"from_jax_driver: unknown driver type {kind}")
     jdt = drv.dyn.dtype if kind == "HarmonicDriver" else drv._drv.dtype
     dtype = dtype or getattr(torch, np.dtype(jdt).name)
@@ -171,6 +172,37 @@ def from_jax_driver(drv, device=None, dtype=None, **overrides):
             t = out.energy_fn.terms
             same_table((t["nbr"], t["mask"]), (nbr, mask),
                        "neighbour table")
+        return out
+    if kind == "SWDriver":
+        kw = dict(cell=_cell_of(c), max_nnei=int(np.shape(c["nbr"])[1]),
+                  element=drv.els[0], params=dict(c["p"]))
+        kw.update(overrides)
+        out = SWDriver(axyz, dtype=dtype, device=device, **kw)
+        t = out.energy_fn.terms
+        same_table((t["nbr"], t["mask"]), (c["nbr"], c["mask"]),
+                   "neighbour table")
+        return out
+    if kind == "EAMDriver":
+        kw = dict(cell=_cell_of(c), max_nnei=int(np.shape(c["nbr"])[1]))
+        if drv.table is not None:
+            kw["setfl"] = {k: (np.asarray(v) if isinstance(v, np.ndarray)
+                               else v) for k, v in drv.table.items()}
+        else:
+            if not np.isclose(float(c["rc"]) - float(c["r_on"]), 0.5):
+                raise ValueError("from_jax_driver: EAMDriver's switch width "
+                                 "is fixed at 0.5 angstrom")
+            kw.update(rcut=float(c["rc"]), params=dict(
+                eps=float(c["eps"]), a=float(c["a"]), c=float(c["c"]),
+                n=float(c["n"]), m=float(c["m"])))
+        kw.update(overrides)
+        out = EAMDriver(axyz, dtype=dtype, device=device, **kw)
+        t = out.energy_fn.terms
+        same_table((t["nbr"], t["mask"]), (c["nbr"], c["mask"]),
+                   "neighbour table")
+        if drv.table is not None and not np.array_equal(
+                t["types"], np.asarray(c["ti_flat"])):
+            raise ValueError("from_jax_driver: the atoms' element rows "
+                             "differ from the JAX driver's")
         return out
     lj = "lennard_jones" in drv.energy_fn.__qualname__
     params = dict(epsilon=float(c["eps"]), sigma=float(c["sig"])) if lj \

@@ -39,7 +39,11 @@
 //    tail) goes out at the start as 4-byte cp.async into shared memory,
 //    none waiting for another, with the first batch of matrix loads behind
 //    them: one round trip for all of it. The gather through the indices
-//    and the Verlet update then read shared memory only;
+//    and the Verlet update then read shared memory only. A system whose
+//    five staged vectors do not fit (launch_plan's staged is 0: above
+//    ~9,000 DOFs, the silicon slab's 10,368) reads x, h, q, base and mask
+//    from global memory as a tile of four or eight does, with the same
+//    arithmetic, so the bits do not change with the route;
 //  * the K slices' partial sums meet in shared memory and are added in
 //    slice order: no float atomics, a run is reproducible bit for bit;
 //  * where no two baths share a DOF (the host checks) the forces go onto
@@ -89,6 +93,7 @@ struct BfArgs {
   // mask, the baths' indices; then the bytes in all
   int f_off, xs_off, hs_off, qs_off, bs_off, ms_off, ci_off, smem_bytes;
   int disjoint;        // no two baths share a DOF
+  int staged;          // x, h, q, base and mask staged (tt <= 2 only)
   int need_h, need_q;  // some bath's operand acts on h, on q
   float dt, hdt, dt2h;
   BfBath baths[BF_MAX_BATHS];
@@ -119,7 +124,9 @@ bath_force_kernel(const BfArgs a) {
   constexpr int NT = BF_THREADS;
   extern __shared__ __align__(128) float sm[];
   // one or two trajectories per CTA: the latency form, everything staged
-  constexpr bool STAGED = TT <= 2;
+  // where it fits in shared memory (launch_plan's staged), else read from
+  // global memory as a larger tile reads it
+  const bool STAGED = TT <= 2 && a.staged;
   const int nph = a.nph;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tr0 = blockIdx.x * TT;

@@ -33,14 +33,17 @@ from sclmd_tpu_torch.baths import EBath, PhBath
 from sclmd_tpu_torch.kernels import build
 
 launches = 0          # bath_force kernel launches (not twin calls)
+# of those, launches of a tile of one or two trajectories whose system is
+# too wide to stage its vectors (launch_plan's staged 0)
+launches_wide = 0
 
 MAX_BATHS = 4         # BF_MAX_BATHS in csrc/bath_force.cu
 PRED, CORR, LAST = 0, 1, 2
 
 
 def reset_count():
-    global launches
-    launches = 0
+    global launches, launches_wide
+    launches = launches_wide = 0
 
 
 SRC_H, SRC_Q = 1, 2    # what a packed operand's later matrices act on
@@ -188,7 +191,7 @@ class _BfArgs(ctypes.Structure):
                 ("hs_off", ctypes.c_int), ("qs_off", ctypes.c_int),
                 ("bs_off", ctypes.c_int), ("ms_off", ctypes.c_int),
                 ("ci_off", ctypes.c_int), ("smem_bytes", ctypes.c_int),
-                ("disjoint", ctypes.c_int),
+                ("disjoint", ctypes.c_int), ("staged", ctypes.c_int),
                 ("need_h", ctypes.c_int), ("need_q", ctypes.c_int),
                 ("dt", ctypes.c_float), ("hdt", ctypes.c_float),
                 ("dt2h", ctypes.c_float),
@@ -221,7 +224,8 @@ BATH_KEYS = ("t0", "nt", "ncol", "nsl", "v_off", "p_off", "z_off", "tl_off",
              "c_off")
 
 
-def launch_plan(shapes, nph: int, tt: int, nt: int = THREADS) -> dict:
+def launch_plan(shapes, nph: int, tt: int, nt: int = THREADS,
+                staged=None) -> dict:
     """How a CTA of ``nt`` threads and ``tt`` trajectories is dealt out
     over baths of ``shapes`` = [(nc, K), ...] (K the packed reduction
     length), and where its shared memory holds what (offsets in floats,
@@ -233,8 +237,16 @@ def launch_plan(shapes, nph: int, tt: int, nt: int = THREADS) -> dict:
     ``p_off`` (nsl, tt, ld), noise then force ``z_off`` (tt, nc), tail
     ``tl_off`` (tt, nc) and indices ``c_off`` (counted from ``ci_off``).
     CTA-wide the force ``f_off`` and, with one or two trajectories per
-    CTA, the staged x, h, q, base (tt, nph) and mask. ``smem_bytes`` is
+    CTA where they fit (``staged``), the staged x, h, q, base (tt, nph)
+    and mask; a system too wide for them (the 10,368 DOFs of the
+    silicon slab) reads x, h, q and base from global memory, as a tile
+    of four or eight does (``staged`` forces either). ``smem_bytes`` is
     the whole."""
+    if staged is None:
+        plan = launch_plan(shapes, nph, tt, nt, staged=tt <= 2)
+        if plan["staged"] and plan["smem_bytes"] > SMEM_LIMIT:
+            plan = launch_plan(shapes, nph, tt, nt, staged=False)
+        return plan
     nb = len(shapes)
     warps = nt // 32
     if nb > warps:
@@ -244,7 +256,6 @@ def launch_plan(shapes, nph: int, tt: int, nt: int = THREADS) -> dict:
     for _ in range(warps - nb if nb else 0):
         i = max(range(nb), key=lambda j: weights[j] / share[j])
         share[i] += 1
-    staged = tt <= 2
     vec = _up4(tt * nph)
     plan = {"f_off": 0}
     off = vec
@@ -269,7 +280,8 @@ def launch_plan(shapes, nph: int, tt: int, nt: int = THREADS) -> dict:
         c_off += nc
         t0 += ntb
         baths.append(b)
-    plan.update(baths=baths, ci_off=off, smem_bytes=4 * (off + _up4(c_off)))
+    plan.update(baths=baths, ci_off=off, smem_bytes=4 * (off + _up4(c_off)),
+                staged=int(staged))
     return plan
 
 
@@ -330,7 +342,7 @@ class BathForce:
             a.tt, a.stage = tt, stage
             a.tail_col = 0 if stage == PRED else 1
             a.dt, a.hdt, a.dt2h = dt, dt / 2.0, dt * dt / 2.0
-            for k in CTA_KEYS:
+            for k in CTA_KEYS + ("staged",):
                 setattr(a, k, plan[k])
             a.disjoint = int(len(np.unique(allc)) == len(allc))
             a.need_h = int(any(op.has_h for op in self.ops))
@@ -395,7 +407,7 @@ class BathForce:
     def _launch(self, stage, x, q, pf, h, h_stride, base, tails, row,
                 mask=None, push=0, push_stride=0, cur=None, etot=None,
                 f_out=None, fbs=None):
-        global launches
+        global launches, launches_wide
         a = self.stages[stage]
         a.x, a.q, a.pf = self._vec(x, "x"), self._vec(q, "q"), \
             self._vec(pf, "pf")
@@ -426,6 +438,8 @@ class BathForce:
                                      build.current_stream(self.device))
         build.check(rc, "bath_force")
         launches += 1
+        if a.tt <= 2 and not a.staged:
+            launches_wide += 1
         return out_p, out_q
 
     def pred(self, p, q, pf, ring, head: int, push: Optional[int], tails,

@@ -132,6 +132,9 @@ def load() -> ctypes.CDLL:
     lib.ch_force_max_groups.restype = ci
     lib.ch_force_trace_len.argtypes = []
     lib.ch_force_trace_len.restype = ci
+    for name in ("sw_force_f32", "eam_force_f32"):
+        getattr(lib, name).argtypes = [vp, vp]
+        getattr(lib, name).restype = ci
     cu = ctypes.c_uint
     ip, ll = ctypes.POINTER(ci), ctypes.c_longlong
     lib.noise_synth_tiles.argtypes = [ip, ip]

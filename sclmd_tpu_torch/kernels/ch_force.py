@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch.kernels import build
+from sclmd_tpu_torch.kernels.slots import (KernelForce, _cell, _mic,
+                                           row_partners)
 
 launches = 0          # kernel launches through a C/H pack (K5)
 launches_tersoff = 0  # kernel launches through a Tersoff pack (K8)
@@ -61,22 +63,6 @@ def reset_count():
 
 def _up(n: int, k: int) -> int:
     return -(-n // k) * k
-
-
-def _mic(d, cell):
-    """Minimum image of difference vectors d (..., 3) on the axes where
-    ``cell`` is positive (numpy's round is half to even, as jnp.round)."""
-    per = cell > 0
-    if per.any():
-        d = d.copy()
-        d[..., per] -= cell[per] * np.round(d[..., per] / cell[per])
-    return d
-
-
-def _cell(terms) -> np.ndarray:
-    cell = terms.get("cell")
-    return np.zeros(3) if cell is None else \
-        np.asarray(cell, np.float64).reshape(3)
 
 
 def _pack(kind, x0, catom, nbr, cell, pair_ab, pair_r0, nbond, oop,
@@ -444,54 +430,19 @@ class CHForceCuda:
         return (e.reshape(q.shape[:-1]), f) if energy else f
 
 
-class CHForce:
-    """``q -> conv * F(xyz + conv q) - f0`` of a C/H or Tersoff driver:
-    the kernel for a CUDA tensor, the autograd twin for a CPU tensor.
+class CHForce(KernelForce):
+    """``q -> conv * F(xyz + conv q) - f0`` of a C/H or Tersoff driver
+    (``kernels.slots.KernelForce``): ``pack`` is ``pack_operands`` (C/H,
+    the default) or ``pack_tersoff``."""
 
-    ``terms``: the energy function's ``terms``; ``driver``: the
-    ``TorchDriver`` holding the energy function (the twin); ``pack``:
-    ``pack_operands`` (C/H, the default) or ``pack_tersoff``. For a driver
-    on the card in float32 the kernel is built and its f0 taken at
-    construction; another dtype raises at the first CUDA call."""
+    cuda_cls = CHForceCuda
 
     def __init__(self, terms: dict, driver, pack=None):
-        self.terms, self.driver = terms, driver
         self.pack_fn = pack or pack_operands
-        self.cuda = None
-        if driver.device.type == "cuda" and driver.dtype == torch.float32:
-            self.cuda = self._build()
+        super().__init__(terms, driver)
 
-    def _build(self):
-        return CHForceCuda(self.pack_fn(self.terms, self.driver.xyz,
-                                        self.driver.conv),
-                           self.driver.device)
-
-    def plain(self, q: torch.Tensor, energy: bool = False):
-        """The twin: autograd of the energy function, batched."""
-        f = self.driver.force_torch(q)
-        return (self.driver.energy_torch(q).detach(), f) if energy else f
-
-    def __call__(self, q: torch.Tensor, energy: bool = False):
-        if q.device.type == "cpu":
-            return self.plain(q, energy)
-        if self.cuda is None:
-            # builds, and the kernel's wrapper then raises on the dtype
-            self.cuda = self._build()
-        return self.cuda(q, energy)
-
-
-def _partners(pack: dict) -> np.ndarray:
-    """(ne, L): for each table entry the other entries of its row, in row
-    order, -1 past the row's end."""
-    rp, ne = pack["row_ptr"], pack["ne"]
-    width = max(1, int((rp[1:] - rp[:-1]).max(initial=1)) - 1)
-    out = np.full((ne, width), -1, np.int64)
-    for i in range(pack["nc"]):
-        row = np.arange(rp[i], rp[i + 1])
-        for e in row:
-            others = row[row != e]
-            out[e, :len(others)] = others
-    return out
+    def pack(self) -> dict:
+        return self.pack_fn(self.terms, self.driver.xyz, self.driver.conv)
 
 
 def _cutoff_np(r, R, D):
@@ -524,7 +475,7 @@ def analytic_force_numpy(pack: dict, q, f0=None):
     r = np.linalg.norm(d[:, :ne], axis=-1)                    # (nt, ne)
     h = d[:, :ne] / r[..., None]
     fc, dfc = _cutoff_np(r, s["R"], s["D"])
-    P = _partners(pack)
+    P = row_partners(pack["row_ptr"])
     pm = P >= 0
     Pc = np.where(pm, P, 0)
     ht, rt = h[:, Pc], r[:, Pc]                               # (nt, ne, L)

@@ -33,7 +33,8 @@ Ported so far: the harmonic force (``dyn``) and force drivers
 (``AddPotential``, ``CompareForce``), both integrators, the ``md``
 runner's ``Run`` (segments, ``MD{j}.npz`` checkpoints with the JAX
 package's keys and shapes, so either package resumes the other's
-checkpoints) and fused ``RunEnsemble`` (with ``steady_init``), and the
+checkpoints) and ``RunEnsemble`` (``steady_init``, segments, and
+``MDE.npz`` checkpoints with the JAX package's keys), and the
 periodic warm start (``steady_mode_temps``, ``state_ravel``/
 ``state_unravel`` in the JAX order, ``gle_step_jacobian``,
 ``period_power``, ``fixed_point_solver``, ``periodic_fixed_point``). A
@@ -41,8 +42,8 @@ system with a force driver takes the plain step: K1 fuses the harmonic
 force into its recurrence. Random draws come from the counter-keyed
 Philox schedule of ``parallel.ensemble`` (kernels K3 and K3b on the
 card), so they are not the JAX package's draws; tests inject the same
-noise into both. Still to port (ROADMAP queue 1): the
-checkpointed/segmented ``RunEnsemble`` and traced ``force_params``.
+noise into both. Still to port (ROADMAP queue 1): traced
+``force_params``.
 """
 
 from __future__ import annotations
@@ -724,6 +725,15 @@ class md:
         """Zeroed history rings as a fresh one-trajectory state."""
         return initial_state(self._build_system(), 1, dtype=self.dtype)
 
+    def ResetSavepq(self):
+        """No-op, as in the JAX package: the per-step series are outputs
+        of the segment, not preallocated buffers."""
+
+    def get_atommass(self):
+        """Per-atom mass list from the element names."""
+        self.mass = [U.AtomicMassTable[el] for el in self.els]
+        return self.mass
+
     def energy(self, state: MDState) -> float:
         return 0.5 * float((state.p * state.p).sum())
 
@@ -975,6 +985,39 @@ class md:
                 os.remove(self._ckfile(j - 1))
         self.state = state
 
+    def _eck_file(self):
+        return os.path.join(self.outdir, "MDE.npz")
+
+    def _load_ensemble_checkpoint(self, fn, ntraj, chunk):
+        """The MDE.npz of an earlier call (this package's or the JAX
+        package's): (ichunk, ipie, cur_sum, seed or None, the chunk's
+        state, its noise per bath). A file of another setup raises."""
+        with np.load(fn) as ck:
+            rows = ck["p"].shape[0]
+            ck_chunk = int(ck["chunk"][0]) if "chunk" in ck else rows
+            ck_ntraj = int(ck["ntraj"][0]) if "ntraj" in ck else rows
+            if (ck["p"].shape[1:] != (self.nph,) or ck_ntraj != ntraj
+                    or ck_chunk != chunk or int(ck["nmd"][0]) != self.nmd
+                    or not np.isclose(float(ck["dt"][0]), self.dt)
+                    or any(f"noise{i}" not in ck or
+                           ck[f"noise{i}"].shape[1:] != (self.nmd, b.nc)
+                           for i, b in enumerate(self.baths))):
+                raise ValueError(
+                    f"{fn} holds a different ensemble setup — stale "
+                    "checkpoint; remove it or change outdir")
+
+            def dev(x, dtype=None):
+                return torch.as_tensor(np.asarray(x), device=self.device,
+                                       dtype=dtype or self.dtype)
+
+            state = MDState(t=dev(ck["t"], torch.long), p=dev(ck["p"]),
+                            q=dev(ck["q"]), phis=dev(ck["phis"]),
+                            qhis=dev(ck["qhis"]))
+            return (int(ck["ichunk"][0]) if "ichunk" in ck else 0,
+                    int(ck["ipie"][0]), np.array(ck["cur_sum"], np.float64),
+                    int(ck["seed"][0]) if "seed" in ck else None, state,
+                    [dev(ck[f"noise{i}"]) for i in range(len(self.baths))])
+
     def RunEnsemble(self, ntraj: int, nsteps: Optional[int] = None,
                     equil_frac: float = 0.25, block: Optional[int] = None,
                     npie: Optional[int] = None, checkpoint: bool = False,
@@ -987,19 +1030,34 @@ class md:
         runs on the card).
 
         The blocked integrator runs when ``block`` (or the runner's)
-        divides ``nsteps`` and the baths are non-local phonon baths; else
-        the plain step, as the JAX runner falls back to it. Chunks of
-        ``chunk`` trajectories (default: ``auto_chunk`` from the card's
-        memory) run one after another, each synthesising only its own
-        noise (K3 on the card, one launch per bath and chunk; K3b for the
-        thermal phases). Every draw is keyed by (seed, stream, trajectory
-        index), so the draws do not depend on the chunking.
+        divides the segment length and the baths are non-local phonon
+        baths; else the plain step, as the JAX runner falls back to it.
+        Chunks of ``chunk`` trajectories (default: ``auto_chunk`` from the
+        card's memory) run one after another, each synthesising only its
+        own noise (K3 on the card, one launch per bath and chunk; K3b for
+        the thermal phases). Every draw is keyed by (seed, stream,
+        trajectory index), so the draws do not depend on the chunking.
         ``steady_init``: the thermal start takes each mode's steady-state
         temperature (``steady_mode_temps``) instead of the runner's T.
 
-        The signature is the reference's. As there, ``npie`` must divide
-        ``nsteps`` (ValueError); ``npie > 1`` and ``checkpoint=True`` are
-        not ported yet and raise.
+        ``npie`` splits each chunk's run into segments of nsteps / npie
+        steps (it must divide ``nsteps``: ValueError), each starting at
+        its step offset in the noise period; the currents of the steps
+        past the equilibration skip add up across segments. Without
+        ``checkpoint`` the next segment's launches go out before a
+        segment's sums are read back (a non-finite current is then
+        reported one segment late). ``checkpoint=True`` runs the
+        segments synchronously and after each one writes ``MDE.npz`` in
+        ``outdir``: the chunk's batched state and noise, the accumulated
+        currents of every trajectory, the chunk and segment reached, the
+        setup (ntraj, chunk, nmd, dt) and the ensemble seed. A later call
+        with ``checkpoint=True`` in the same ``outdir`` resumes from it
+        (a finished ensemble returns its means again, a file of another
+        setup raises ValueError). The keys are the JAX package's, with
+        this package's integer seed under ``seed`` where the JAX package
+        stores ``noise_key``/``init_key``: either package resumes the
+        other's current chunk, whose state and noise are in the file, but
+        later chunks draw from the resuming package's own schedule.
         """
         from sclmd_tpu_torch.parallel.ensemble import (
             auto_chunk, bath_factors, draw_chunk, fused_chunk)
@@ -1009,13 +1067,10 @@ class md:
         if nsteps % npie:
             raise ValueError(f"nsteps={nsteps} not divisible by "
                              f"npie={npie}")
-        if checkpoint or npie != 1:
-            raise NotImplementedError(
-                "RunEnsemble: the checkpointed and segmented (npie > 1) "
-                "branches are not ported yet (ROADMAP queue 1 item 2)")
+        seg = nsteps // npie
         system = self._build_system()
         block = block if block is not None else self.block
-        if not (block and nsteps % block == 0 and blocked_supports(system)):
+        if not (block and seg % block == 0 and blocked_supports(system)):
             block = None
         nb = len(self.baths)
         skip = int(nsteps * equil_frac)
@@ -1033,39 +1088,86 @@ class md:
             start = self._thermal_start(T_init)
         facs = bath_factors(self.baths, self.device)
         cur_sum = np.zeros((ntraj, nb))
-        cur_cnt = nsteps - min(skip, nsteps)
-        pending = []
+        # counted steps per trajectory, the same for every chunk: a
+        # function of the segment schedule (a resumed call must not count
+        # again)
+        cur_cnt = sum(seg - min(max(0, skip - i * seg), seg)
+                      for i in range(npie))
+        ichunk0, ipie0, ck_state, ck_noises = 0, -1, None, None
+        fn = self._eck_file()
+        if checkpoint and os.path.isfile(fn):
+            ichunk0, ipie0, cur_sum, ck_seed, ck_state, ck_noises = \
+                self._load_ensemble_checkpoint(fn, ntraj, chunk)
+            if ck_seed is not None:
+                seed = ck_seed
+
+        def finish(c0, c1):
+            self._write_kappa_files(cur_sum[c0:c1] / max(cur_cnt, 1), c0)
 
         def drain(item):
-            d0, d1, dic, dsum, dok = item
+            d0, d1, dic, di, dsum, dok, last = item
             if not bool(dok):
                 raise FloatingPointError(
                     f"RunEnsemble: non-finite heat currents in chunk {dic} "
-                    "- reduce dt or check the force driver")
+                    f"segment {di} - reduce dt or check the force driver")
             cur_sum[d0:d1] += dsum.double().cpu().numpy()
-            # the chunk's kappa files, while the next chunk runs on the card
-            self._write_kappa_files(cur_sum[d0:d1] / max(cur_cnt, 1), d0)
+            if last:
+                # the chunk's kappa files, while the next chunk runs
+                finish(d0, d1)
 
-        first = None
+        pending, first = [], None
         for ic in range(-(-ntraj // chunk)):
             c0, c1 = ic * chunk, min((ic + 1) * chunk, ntraj)
-            noises, states = draw_chunk(facs, seed, c0, c1, self.dt,
-                                        self.nmd, start, system)
-            finals, sums, ok = fused_chunk(
-                system, facs, None, nsteps, 0, block, min(skip, nsteps),
-                noises=noises, states=states)
-            # read a chunk's sums back, and write its files, only after the
-            # next chunk's launches: those then overlap this chunk on the
-            # card (reading them at once would leave the card idle)
-            pending.append((c0, c1, ic, sums, ok))
-            while len(pending) > 1:
-                drain(pending.pop(0))
+            if ic < ichunk0:                  # finished before the resume
+                finish(c0, c1)
+                continue
+            if ic == ichunk0 and ck_state is not None:
+                noises, states, pie0 = ck_noises, ck_state, ipie0 + 1
+                if pie0 >= npie:
+                    finish(c0, c1)
+                    continue
+            else:
+                noises, states = draw_chunk(facs, seed, c0, c1, self.dt,
+                                            self.nmd, start, system)
+                pie0 = 0
+            for i in range(pie0, npie):
+                states, sums, ok = fused_chunk(
+                    system, facs, None, seg, (i * seg) % self.nmd, block,
+                    min(max(0, skip - i * seg), seg), noises=noises,
+                    states=states)
+                item = (c0, c1, ic, i, sums, ok, i == npie - 1)
+                if checkpoint:
+                    drain(item)
+                    self._save_ensemble_checkpoint(
+                        fn, states, noises, ic, i, chunk, ntraj, cur_sum,
+                        cur_cnt, seed)
+                    continue
+                # read a segment's sums back only after the next one's
+                # launches: those then overlap it on the card (reading
+                # them at once would leave the card idle)
+                pending.append(item)
+                while len(pending) > 1:
+                    drain(pending.pop(0))
             if first is None:
-                first = finals.select(0)
+                first = states.select(0)
         for item in pending:
             drain(item)
         self.state = first
         return cur_sum / max(cur_cnt, 1)
+
+    def _save_ensemble_checkpoint(self, fn, states, noises, ic, ipie, chunk,
+                                  ntraj, cur_sum, cur_cnt, seed):
+        data = {"p": _host(states.p), "q": _host(states.q),
+                "t": _host(states.t), "phis": _host(states.phis),
+                "qhis": _host(states.qhis), "ichunk": np.asarray([ic]),
+                "ipie": np.asarray([ipie]), "chunk": np.asarray([chunk]),
+                "ntraj": np.asarray([ntraj]), "nmd": np.asarray([self.nmd]),
+                "dt": np.asarray([self.dt]), "cur_sum": cur_sum,
+                "cur_cnt": np.asarray([cur_cnt]),
+                "seed": np.asarray([seed], np.uint64)}
+        for ib, nz in enumerate(noises):
+            data[f"noise{ib}"] = _host(nz)
+        np.savez(fn, **data)
 
     # ---- output files ----
     def _write_kappa_files(self, means, lo: int = 0):
@@ -1166,3 +1268,23 @@ class md:
         if self.curs is None:
             raise RuntimeError("run first")
         return self.power
+
+
+def ApplyConstraint(f, constr=None):
+    """Zero the listed DOFs of f (a float64 copy; f itself when ``constr``
+    is None)."""
+    if constr is None:
+        return f
+    f = np.array(f, dtype=float)
+    for grp in constr:
+        f[np.asarray(list(grp), dtype=np.int64)] = 0.0
+    return f
+
+
+def sameq(q1, q2, tol=10e-10):
+    """True when two displacement vectors coincide (same shape, largest
+    difference below ``tol``)."""
+    q1, q2 = np.asarray(q1), np.asarray(q2)
+    if q1.shape != q2.shape:
+        return False
+    return bool(np.max(np.abs(q1 - q2)) < tol)

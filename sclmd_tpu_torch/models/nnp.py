@@ -1,6 +1,6 @@
-"""Static padded neighbour tables (counterpart of
-``sclmd_tpu.models.nnp.build_neighbors``; the neural-network potential of
-that module is not ported yet).
+"""Static padded neighbour tables and the C2-smooth switch (counterparts
+of ``sclmd_tpu.models.nnp.build_neighbors`` and ``smooth_switch``; the
+neural-network potential of that module is not ported yet).
 
 The table is built once from the reference geometry with a skin and is
 never rebuilt during a run: atoms of a junction vibrate around fixed
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 def build_neighbors(xyz, cutoff: float, max_nnei: Optional[int],
@@ -60,3 +61,9 @@ def build_neighbors(xyz, cutoff: float, max_nnei: Optional[int],
         nbr[i, : len(js)] = js
     mask = nbr >= 0
     return np.where(mask, nbr, 0), mask
+
+
+def smooth_switch(r: torch.Tensor, r_on: float, r_cut: float) -> torch.Tensor:
+    """C2-smooth switching function: 1 below r_on, 0 above r_cut."""
+    u = ((r - r_on) / (r_cut - r_on)).clamp(0.0, 1.0)
+    return 1.0 - 6 * u ** 5 + 15 * u ** 4 - 10 * u ** 3

@@ -1,7 +1,8 @@
 """Quantum colored-noise synthesis (counterpart of ``sclmd_tpu.ops.noise``).
 
 Setup stays on the host in numpy float64: the half-spectrum PSD batch
-(``phonon_psd``) and its one-time eigendecomposition (``noise_factors``).
+(``phonon_psd``) and its one-time eigendecomposition (``noise_factors``;
+``phonon_factors`` skips the batch for a proportional friction table).
 Sampling runs on torch tensors with a leading trajectory dimension:
 draw x std, times the PSD eigenvectors (the half spectrum xi), folded
 for the C2R transform (conj(xi) / (nmd dt), frequency axis last), then
@@ -77,6 +78,26 @@ def electron_psd(wl, efric, exim, exip, bias, T, ecut,
     return hermitianize(amat.astype(cplx))
 
 
+def _proportional(batch, nw: int, nc: int):
+    """The one test for a frequency-proportional spectrum or friction
+    table: (c, r) when every row k of ``batch`` (n, ...) is c_k R, R its
+    row r of largest norm, to 1e-12 of that norm, with c_k >= -1e-15
+    (returned clipped at 0); else None. It runs only for nc >= 8 and
+    nw > 4 frequencies, so small baths keep the per-frequency factors."""
+    if nc < 8 or nw <= 4:
+        return None
+    b = batch.reshape(len(batch), -1)
+    norms = np.linalg.norm(b, axis=1)
+    r = int(np.argmax(norms))
+    if not norms[r] > 0:
+        return None
+    c = (b @ np.conjugate(b[r])).real / float(np.vdot(b[r], b[r]).real)
+    resid = np.abs(b - c[:, None] * b[r]).max(axis=1)
+    if (resid <= 1e-12 * norms[r]).all() and (c >= -1e-15).all():
+        return np.clip(c, 0.0, None), r
+    return None
+
+
 def noise_factors(psd, dtype=None):
     """Host float64 factorisation of the PSD batch: (evecs, std).
 
@@ -93,32 +114,56 @@ def noise_factors(psd, dtype=None):
     cplx = np.complex128 if dtype is None or _is_f64(dtype) \
         else np.complex64
     rdt = np.float64 if dtype is None or _is_f64(dtype) else np.float32
-    if nc >= 8 and nw > 4:
-        norms = np.linalg.norm(psd_np.reshape(nw, -1), axis=1)
-        r = int(np.argmax(norms))
-        if norms[r] > 0:
-            ref = psd_np[r]
-            ref2 = float(np.vdot(ref, ref).real)
-            c = np.real(np.einsum("wij,ij->w", psd_np, np.conjugate(ref))
-                        ) / ref2
-            resid = psd_np - c[:, None, None] * ref[None]
-            tol = 1e-12 * norms[r]
-            if (np.abs(resid).reshape(nw, -1).max(axis=1)
-                    <= np.maximum(tol, 1e-13 * norms[r])).all() \
-                    and (c >= -1e-15).all():
-                ev0, evec0 = np.linalg.eigh(ref)
-                ev = np.clip(c, 0.0, None)[:, None] * \
-                    np.clip(ev0, 0.0, None)[None, :]
-                std = np.sqrt(ev)
-                if dtype is not None:
-                    evec0 = evec0.astype(cplx)
-                    std = std.astype(rdt)
-                return np.broadcast_to(evec0, psd_np.shape), std
+    prop = _proportional(psd_np, nw, nc)
+    if prop is not None:
+        c, r = prop
+        ev0, evec0 = np.linalg.eigh(psd_np[r])
+        ev = c[:, None] * np.clip(ev0, 0.0, None)[None, :]
+        std = np.sqrt(ev)
+        if dtype is not None:
+            evec0 = evec0.astype(cplx)
+            std = std.astype(rdt)
+        return np.broadcast_to(evec0, psd_np.shape), std
     ev, evec = np.linalg.eigh(psd_np)
     std = np.sqrt(np.clip(ev, 0.0, None))
     if dtype is not None:
         return evec.astype(cplx), std.astype(rdt)
     return evec, std
+
+
+def phonon_factors(wl, gamma, gwl, T, phcut, classical: bool = False,
+                   zpmotion: bool = True, delta: float = 1.0, dtype=None):
+    """``noise_factors(phonon_psd(...))`` without the PSD batch where the
+    friction table is proportional, Gamma(gwl_k) = c_k G with c_k >= 0
+    by ``_proportional``, the test ``noise_factors`` makes of the batch
+    (wideband, Debye and scalar-profile baths): the PSD is then
+    s(w) herm(G) with s = d equ(w) flinterp(c)(w) >= 0, so one eigh of
+    the PSD at its largest frequency (the same matrix, bit for bit, the
+    batch would hold there) gives the factors, as ``noise_factors``'
+    proportional branch finds them from the batch (to rounding). A
+    (nw, nc, nc) batch of 864-wide baths (6 GB) is never made. Other
+    tables, and baths narrower than 8, take ``noise_factors``."""
+    wl = np.asarray(wl)
+    gamma = np.asarray(gamma)
+    nc = gamma.shape[-1]
+    s = np.zeros(1)
+    prop = _proportional(gamma, len(wl), nc)
+    if prop is not None:
+        s = delta * equ_spectrum(wl, phcut, T, classical, zpmotion) \
+            * flinterp_np(wl, np.asarray(gwl), prop[0])
+    r = int(np.argmax(s))
+    if s[r] <= 0:
+        return noise_factors(phonon_psd(wl, gamma, gwl, T, phcut, classical,
+                                        zpmotion, delta=delta), dtype=dtype)
+    ref = phonon_psd(wl[r:r + 1], gamma, gwl, T, phcut, classical, zpmotion,
+                     delta=delta)[0].astype(np.complex128)
+    ev0, evec0 = np.linalg.eigh(ref)
+    std = np.sqrt((s / s[r])[:, None] * np.clip(ev0, 0.0, None)[None, :])
+    if dtype is not None:
+        f64 = _is_f64(dtype)
+        evec0 = evec0.astype(np.complex128 if f64 else np.complex64)
+        std = std.astype(np.float64 if f64 else np.float32)
+    return np.broadcast_to(evec0, (len(wl), nc, nc)), std
 
 
 def factor_matrix(evecs) -> np.ndarray:

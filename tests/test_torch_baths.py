@@ -150,3 +150,39 @@ def test_wrappers_take_twins_only_on_cpu():
                           torch.zeros((1, 2)), torch.zeros((2, 2)),
                           torch.ones(2), [], 0, 4, 0.1, True, 2)
 
+
+
+@pytest.mark.parametrize("kind", ["profile", "wideband", "matrix", "narrow"])
+def test_phonon_factors_skip_the_psd_batch_alike(kind):
+    """``phonon_factors`` against ``noise_factors`` of the whole PSD batch:
+    a proportional friction table (a scalar profile times a matrix, the
+    wideband 0.01 I of the slabs) gives the same eigenvectors and the
+    same standard deviations to 1e-12 without the batch; a table that is
+    not proportional, and a bath narrower than 8, take the batch itself
+    (the same bits)."""
+    from sclmd_tpu_torch.ops import noise as NZ
+    rng = np.random.default_rng(2)
+    nc = 5 if kind == "narrow" else 12
+    gwl = np.linspace(0.0, 0.6, 16)
+    a = rng.normal(size=(nc, nc))
+    base = a @ a.T / nc + 0.1 * np.eye(nc)
+    prof = np.exp(-(gwl / 0.3) ** 2)
+    gamma = {"profile": prof[:, None, None] * base,
+             "wideband": np.broadcast_to(0.01 * np.eye(nc), (16, nc, nc)),
+             "matrix": prof[:, None, None] * base
+             + np.linspace(0, 0.05, 16)[:, None, None] * np.diag(
+                 np.arange(nc, dtype=float)),
+             "narrow": prof[:, None, None] * base}[kind]
+    wl = 2.0 * np.pi / 0.4 / 256 * np.arange(129)
+    args = (wl, gamma, gwl, 300.0, 0.6, False, True)
+    want = NZ.noise_factors(NZ.phonon_psd(*args, delta=102.4),
+                            dtype=np.float64)
+    got = NZ.phonon_factors(*args, delta=102.4, dtype=np.float64)
+    if kind in ("matrix", "narrow"):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+        return
+    assert got[0].strides[0] == 0 and want[0].strides[0] == 0
+    np.testing.assert_allclose(got[0][0], want[0][0], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got[1], want[1], rtol=0,
+                               atol=1e-12 * want[1].max())

@@ -12,7 +12,9 @@ from sclmd_tpu_torch import baths as TB
 from sclmd_tpu_torch import convert
 from sclmd_tpu_torch import md as TMD
 from sclmd_tpu_torch import resolve_device
+from sclmd_tpu_torch.models.eam import EAMDriver
 from sclmd_tpu_torch.models.harmonic import HarmonicDriver, chain_dynmat
+from sclmd_tpu_torch.models.sw import SWDriver
 
 DYN = chain_dynmat(6, 0.05).numpy()
 GWL = np.linspace(0.0, 0.6, 8)
@@ -26,6 +28,10 @@ ENTRY_POINTS = {
                                    efric=np.eye(2) / 60.0, **kw),
     "set_dyn": lambda **kw: TMD.set_dyn(DYN, **kw),
     "harmonic": lambda **kw: HarmonicDriver(DYN, **kw),
+    "sw": lambda **kw: SWDriver([["Si", 0.0, 0.0, 0.0],
+                                 ["Si", 2.35, 0.0, 0.0]], **kw),
+    "eam": lambda **kw: EAMDriver([["Au", 0.0, 0.0, 0.0],
+                                   ["Au", 2.88, 0.0, 0.0]], **kw),
 }
 
 
@@ -49,6 +55,8 @@ def test_cpu_on_request(no_card, name):
         "ebath": lambda b: [b.efric, b.zeta2],
         "set_dyn": lambda t: list(t),
         "harmonic": lambda h: [h.dyn, h.f0],
+        "sw": lambda d: [d.f0],
+        "eam": lambda d: [d.f0],
     }[name](built)
     assert all(t.device.type == "cpu" for t in tensors)
     if name == "md":

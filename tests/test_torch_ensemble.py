@@ -253,16 +253,158 @@ def test_auto_chunk_budget():
                          depth=2) == 16
 
 
-def test_unported_branches_raise(tmp_path):
-    r = _torch_runner(tmp_path)
-    for kw in (dict(checkpoint=True), dict(npie=2)):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            r.RunEnsemble(2, **kw)
+@pytest.mark.parametrize("block,kw", [
+    (16, dict(npie=2)), (16, dict(checkpoint=True)),
+    (None, dict(npie=4, checkpoint=True))])
+def test_segmented_equals_fused(tmp_path, block, kw):
+    """Segments (npie), the checkpointed path, or both, give the fused
+    call's means to rounding (the same draws; the segments' current sums
+    are added on the host), on the blocked and the plain step: the
+    port's side of the JAX package's
+    test_fused_matches_segmented_and_checkpoint_paths."""
+    d1, d2 = tmp_path / "fused", tmp_path / "seg"
+    d1.mkdir()
+    d2.mkdir()
+    r1, r2 = _torch_runner(d1), _torch_runner(d2)
+    r1.block = r2.block = block
+    fused = r1.RunEnsemble(5, chunk=2)
+    seg = r2.RunEnsemble(5, chunk=2, **kw)
+    np.testing.assert_allclose(seg, fused, rtol=1e-11, atol=1e-15)
+    assert os.path.isfile(d2 / "MDE.npz") == bool(kw.get("checkpoint"))
+    for name in os.listdir(d1):
+        assert (d2 / name).is_file(), name
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def _interrupt_after(monkeypatch, n):
+    """Let the port's runner write ``n`` ensemble checkpoints, then stop
+    it as a lost job would stop."""
+    real = TMD.md._save_ensemble_checkpoint
+    done = []
+
+    def save(self, *a, **k):
+        real(self, *a, **k)
+        done.append(1)
+        if len(done) == n:
+            raise _Interrupted
+    monkeypatch.setattr(TMD.md, "_save_ensemble_checkpoint", save)
+
+
+def test_resume_equals_uninterrupted(tmp_path, monkeypatch):
+    """A call stopped after its third checkpoint (chunk 1 of 3, segment 0
+    of 2) and resumed by a fresh runner in the same directory gives the
+    uninterrupted call's means bitwise and rewrites every kappa file; a
+    finished ensemble resumed again returns the same means."""
+    d1, d2 = tmp_path / "whole", tmp_path / "resumed"
+    d1.mkdir()
+    d2.mkdir()
+    want = _torch_runner(d1).RunEnsemble(5, chunk=2, npie=2,
+                                         checkpoint=True)
+    with monkeypatch.context() as m:
+        _interrupt_after(m, 3)
+        with pytest.raises(_Interrupted):
+            _torch_runner(d2).RunEnsemble(5, chunk=2, npie=2,
+                                          checkpoint=True)
+    ck = np.load(d2 / "MDE.npz")
+    assert int(ck["ichunk"][0]) == 1 and int(ck["ipie"][0]) == 0
+    # the resuming runner's own seed differs: the draws of chunk 2 come
+    # from the seed in the file
+    r = _torch_runner(d2, seed=5)
+    got = r.RunEnsemble(5, chunk=2, npie=2, checkpoint=True)
+    assert np.array_equal(got, want)
+    for name in os.listdir(d1):
+        assert (d1 / name).read_bytes() == (d2 / name).read_bytes(), name
+    for name in os.listdir(d2):
+        if name.startswith("kappa."):
+            os.remove(d2 / name)
+    again = r.RunEnsemble(5, chunk=2, npie=2, checkpoint=True)
+    assert np.array_equal(again, want)
+    assert len([n for n in os.listdir(d2) if n.startswith("kappa.")]) == 10
+
+
+@pytest.mark.parametrize("change", ["ntraj", "chunk", "nmd", "dt"])
+def test_stale_ensemble_checkpoint_raises(tmp_path, change):
+    """An MDE.npz of another setup (trajectories, chunk, noise period or
+    time step) in the outdir is refused, as the JAX package refuses it."""
+    _torch_runner(tmp_path).RunEnsemble(4, chunk=2, npie=2,
+                                        checkpoint=True)
+    kw = dict(ntraj=4, chunk=2)
+    if change in ("ntraj", "chunk"):
+        kw[change] = {"ntraj": 6, "chunk": 4}[change]
+        r = _torch_runner(tmp_path)
+    else:
+        nmd, dt = (2 * NMD, DT) if change == "nmd" else (NMD, 0.5 * DT)
+        r = TMD.md(dt, nmd, T, axyz=[["C", 1.0 * i, 0.0, 0.0]
+                                     for i in range(NAT)],
+                   dyn=_dyn(), dtype=torch.float64, outdir=str(tmp_path),
+                   device="cpu")
+        for Tb, cats in SPECS:
+            r.AddBath(TB.phbath(Tb, cats, 0.3, 32, dt, nmd, ml=ML,
+                                gamma=GAM, gwl=GWL, dtype=torch.float64,
+                                device="cpu"))
+    with pytest.raises(ValueError, match="stale checkpoint"):
+        r.RunEnsemble(kw["ntraj"], npie=2, checkpoint=True,
+                      chunk=kw["chunk"])
+
+
+def test_resumes_jax_written_checkpoint(tmp_path, monkeypatch):
+    """An MDE.npz the JAX package wrote when stopped after the first of
+    two segments (its noise injected from numpy in the test, its thermal
+    start its own) is resumed by the port: the port runs the second
+    segment from the file's state and noise, and the means equal the JAX
+    package's uninterrupted call (rtol 1e-9, the two steps' summation
+    order)."""
+    from sclmd_tpu.parallel import ensemble as JE
+
+    ntraj = 3
+
+    def injected(system, key, n, lo=0, hi=None):
+        hi = n if hi is None else hi
+        return system.replace(baths=tuple(
+            b.replace(noise=jnp.asarray(np.stack([JN.sample_noise_np(
+                np.random.default_rng(100 * i + j), b.nevecs, b.nstd, DT,
+                NMD) for j in range(lo, hi)])), nevecs=None, nstd=None)
+            for i, b in enumerate(system.baths)))
+
+    def jax_runner(outdir):
+        r = JMD.md(DT, NMD, T, axyz=[["C", 1.0 * i, 0.0, 0.0]
+                                     for i in range(NAT)],
+                   dyn=_dyn(), dtype=jnp.float64, outdir=str(outdir),
+                   block=16, seed=3)
+        for Tb, cats in SPECS:
+            r.AddBath(JB.phbath(Tb, cats, 0.3, 32, DT, NMD, ml=ML,
+                                gamma=GAM, gwl=GWL, dtype=jnp.float64))
+        return r
+
+    monkeypatch.setattr(JE, "ensemble_noise", injected)
+    (tmp_path / "whole").mkdir()
+    want = jax_runner(tmp_path / "whole").RunEnsemble(
+        ntraj, npie=2, checkpoint=True)
+    real_savez = np.savez
+
+    def savez_once(*a, **k):
+        real_savez(*a, **k)
+        raise _Interrupted
+
+    with monkeypatch.context() as m:
+        m.setattr(np, "savez", savez_once)
+        with pytest.raises(_Interrupted):
+            jax_runner(tmp_path).RunEnsemble(ntraj, npie=2, checkpoint=True)
+    ck = np.load(tmp_path / "MDE.npz")
+    assert "noise_key" in ck and "seed" not in ck
+    assert int(ck["ipie"][0]) == 0
+    got = _torch_runner(tmp_path).RunEnsemble(ntraj, npie=2,
+                                              checkpoint=True)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-14)
 
 
 def test_run_ensemble_signature_and_check_order(tmp_path):
     """The reference's keywords are all accepted, and ``nsteps % npie``
-    raises its ValueError before any not-ported error."""
+    raises its ValueError before anything runs or a checkpoint is
+    read."""
     import inspect
     want = list(inspect.signature(JMD.md.RunEnsemble).parameters)
     assert list(inspect.signature(TMD.md.RunEnsemble).parameters) == want

@@ -305,9 +305,13 @@ def _k7_case(device, dtype, kinds, ntraj, nph=24, nmd=32, sets=DISJOINT):
     return baths
 
 
-def _k7_against_twin(cuda, kinds, ntraj, sets=DISJOINT, tile=None):
+def _k7_against_twin(cuda, kinds, ntraj, sets=DISJOINT, tile=None, nph=24,
+                     unstage=False):
+    """K7's three stages against the twins on the same tensors;
+    ``unstage``: the launches take the unstaged route on the staged
+    plan's layout. Returns the kernel's outputs."""
     from sclmd_tpu_torch.kernels import bath_force as K7
-    nph, nmd = 24, 32
+    nmd = 32
     baths = _k7_case(cuda, torch.float32, kinds, ntraj, nph, nmd, sets)
     gen = torch.Generator(device=cuda).manual_seed(ntraj)
 
@@ -321,6 +325,9 @@ def _k7_against_twin(cuda, kinds, ntraj, sets=DISJOINT, tile=None):
     ring = rnd(ntraj, mlr, nph)
     tails = [rnd(ntraj, b.nc, 2) if b.ml > 2 else None for b in baths]
     force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda, tile=tile)
+    if unstage:
+        for a in force.stages:
+            a.staged = 0
     res = {}
     for name, run in (("kernel", force), ("twin", None)):
         rg = ring.clone()
@@ -348,6 +355,7 @@ def _k7_against_twin(cuda, kinds, ntraj, sets=DISJOINT, tile=None):
                          **{f"fb{i}": fb for i, fb in enumerate(fbs)})
     for k, v in res["twin"].items():
         assert _rel(res["kernel"][k], v) < 1e-5, k
+    return force, res["kernel"]
 
 
 @pytest.mark.parametrize("kinds", [
@@ -381,6 +389,35 @@ def test_bath_force_shapes(cuda, kinds, ntraj, sets, tile):
     that share DOFs (their forces add up on those), in the staged form
     (one or two trajectories per CTA) and the tiled one."""
     _k7_against_twin(cuda, kinds, ntraj, sets, tile)
+
+
+@pytest.mark.parametrize("ntraj,tile", [(3, None), (5, 2)])
+def test_bath_force_wide_system_reads_global_memory(cuda, ntraj, tile):
+    """The silicon slab's shapes (nph 10,368, two phonon baths of 864
+    DOFs and memory length 1 at its two ends): too wide to stage, the
+    launches take the unstaged route, count as such, and agree with the
+    twins."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    nph = 10368
+    sets = (list(range(864)), list(range(nph - 864, nph)))
+    before = K7.launches_wide
+    force, _ = _k7_against_twin(cuda, (("phonon", 1), ("phonon", 1)), ntraj,
+                                sets, tile, nph=nph)
+    assert all(a.staged == 0 for a in force.stages)
+    assert K7.launches_wide == before + 3
+
+
+@pytest.mark.parametrize("tile", [1, 2])
+def test_bath_force_routes_give_the_same_bits(cuda, tile):
+    """Where the staged route fits, the unstaged one (the same plan, its
+    vectors read from global memory) writes the same bits."""
+    kinds = (("phonon", 12), ("local",), ("electron",), ("biased",))
+    ntraj = 3 if tile == 1 else 5
+    staged, out = _k7_against_twin(cuda, kinds, ntraj, tile=tile)
+    assert all(a.staged == 1 for a in staged.stages)
+    _, again = _k7_against_twin(cuda, kinds, ntraj, tile=tile, unstage=True)
+    for k, v in out.items():
+        assert torch.equal(v, again[k]), k
 
 
 def test_bath_force_outputs_outlive_two_stages(cuda):
@@ -988,3 +1025,154 @@ def test_c2r_series_leaves_its_input_and_neighbours(cuda):
     assert torch.equal(K3.c2r_series(buf, nmd, consume=True), got)
     assert torch.equal(K3.c2r_series(y, nmd, consume=True), got)
     assert torch.equal(big, keep)     # a view is never taken as scratch
+
+
+# --- K9 (Stillinger-Weber) and K10 (EAM) -------------------------------------
+def _slot_pair(kind, cuda, **kw):
+    """A driver of ``kind`` in float32 on the card (its kernel) and its
+    float64 twin on the CPU: "si" a periodic diamond cell, "si_open" an
+    open one, "au"/"au_tab" a periodic fcc cell (analytic, tabulated),
+    "alloy" a two-element setfl table on it."""
+    from sclmd_tpu_torch.models import eam as E
+    from sclmd_tpu_torch.models import sw as S
+    if kind.startswith("si"):
+        pos, cell = S.diamond_cell(3, 2, 2)
+        axyz = [["Si", *p] for p in pos]
+        kw.setdefault("cell", None if kind == "si_open" else cell)
+        make = S.SWDriver
+    else:
+        pos, cell = E.fcc_cell(3, 3, 3, 4.08)
+        els = ["Au", "Ag"] if kind == "alloy" else ["Au"]
+        axyz = [[els[i % len(els)], *p] for i, p in enumerate(pos)]
+        kw.setdefault("cell", cell)
+        if kind == "au":
+            kw.setdefault("rcut", 5.5)
+        else:
+            kw["setfl"] = _alloy_table(els)
+        make = E.EAMDriver
+    return (make(axyz, dtype=torch.float32, device=cuda, **kw),
+            make(axyz, dtype=torch.float64, device="cpu", **kw))
+
+
+def _alloy_table(els):
+    """A setfl dict of the Sutton-Chen sets of ``els`` (cutoff 5.5) on one
+    grid, the cross pair the mean of the two."""
+    from sclmd_tpu_torch.models import eam as E
+    tabs = [E.sutton_chen_tables(e, rcut=5.5, rho_max=600.0) for e in els]
+    rphi = [tabs[0]["rphi"][0]]
+    if len(els) == 2:
+        rphi += [0.5 * (tabs[0]["rphi"][0] + tabs[1]["rphi"][0]),
+                 tabs[1]["rphi"][0]]
+    t = dict(tabs[0])
+    t.update(elements=list(els), mass=np.zeros(len(els)),
+             F=np.concatenate([x["F"] for x in tabs]),
+             rho=np.concatenate([x["rho"] for x in tabs]),
+             rphi=np.stack(rphi),
+             pair_index=np.array([[0, 1], [1, 2]] if len(els) == 2
+                                 else [[0]], np.int32))
+    return t
+
+
+_SI_REAL = dict(p=4.5, q=0.25, A=7.049556277, B=0.6022245584,
+                sigma=2.0951, a=1.80, lam=21.0, gam=1.20,
+                costheta0=-1.0 / 3.0, eps=2.1683)
+_AU_REAL = dict(eps=7.8052e-3, a=4.08, c=34.408, n=10.5, m=7.75)
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("si", {}), ("si_open", {}), ("si", dict(max_nnei=10)),
+    ("si", dict(params=_SI_REAL)),
+    ("au", {}), ("au", dict(max_nnei=30)), ("au", dict(params=_AU_REAL)),
+    ("au_tab", {}), ("alloy", {}), ("alloy", dict(max_nnei=30))])
+@pytest.mark.parametrize("ntraj", [1, 37])
+def test_slot_forces_match_float64_twin(cuda, kind, kw, ntraj):
+    """K9 and K10 (both modes, one and two elements) against their float64
+    twins, tables truncated below their occupancy included (not
+    symmetric), and powers that are not integers (powf): force within
+    1e-4 and energy within 1e-5 of the largest;
+    one evaluation counted a call; bitwise repeats; exactly zero at
+    rest; a single (nph,) vector goes through as a batch of one."""
+    from sclmd_tpu_torch.kernels import eam_force as K10
+    from sclmd_tpu_torch.kernels import sw_force as K9
+    mod = K9 if kind.startswith("si") else K10
+    drv, ref = _slot_pair(kind, cuda, **kw)
+    assert drv.kernel.cuda is not None
+    gen = torch.Generator(device=cuda).manual_seed(ntraj)
+    conv = torch.as_tensor(drv.conv, dtype=torch.float32, device=cuda)
+    q = 0.1 * torch.randn((ntraj, 3 * drv.number), device=cuda,
+                          generator=gen) / conv
+    before = mod.launches
+    e, f = drv.energy_force_torch(q)
+    f2 = drv.force_torch(q)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 2
+    assert torch.equal(f, f2)
+    ew, fw = ref.energy_force_torch(q.double().cpu())
+    assert _rel(f, fw) < 1e-4
+    assert _rel(e, ew) < 1e-5
+    assert not drv.force_torch(torch.zeros_like(q)).any()
+    assert torch.equal(drv.force_torch(q[0]), f[0])
+    assert _rel(drv.kernel.plain(q), fw) < 1e-3
+
+
+def test_sw_force_through_the_cutoff(cuda):
+    """Pairs pulled across the cutoff a sigma (the tail's exponential
+    underflows before 1/(r - a sigma)^2 blows up): finite, and within
+    1e-4 of the float64 twin."""
+    drv, ref = _slot_pair("si", cuda)
+    x0 = np.array(drv.xyz).reshape(-1, 3)
+    rng = np.random.default_rng(3)
+    u = rng.normal(size=(16, drv.number, 3)) * np.linspace(
+        0.0, 0.5, 16)[:, None, None]
+    q = torch.as_tensor((u.reshape(16, -1)) / drv.conv, dtype=torch.float32,
+                        device=cuda)
+    f = drv.force_torch(q)
+    fw = ref.force_torch(q.double().cpu())
+    assert torch.isfinite(f).all() and x0.shape[0] == drv.number
+    assert _rel(f, fw) < 1e-4
+
+
+def test_slot_forces_refuse_what_the_kernel_does_not_take(cuda):
+    """float64 on the card keeps the autograd route, and non-integer powers
+    do not (the kernel takes powf); a float64 tensor or one of another
+    width given to the kernel raises."""
+    from sclmd_tpu_torch.models import sw as S
+    drv, _ = _slot_pair("si", cuda)
+    with pytest.raises(TypeError):
+        drv.kernel(torch.zeros((2, 3 * drv.number), dtype=torch.float64,
+                               device=cuda))
+    with pytest.raises(ValueError):
+        drv.kernel(torch.zeros((2, 3 * drv.number + 3), device=cuda))
+    d64 = S.SWDriver(drv.axyz, dtype=torch.float64, device=cuda)
+    assert d64.kernel is None
+    odd = dict(S.SW_PARAMS["Si"], p=4.5)
+    assert S.SWDriver(drv.axyz, dtype=torch.float32, device=cuda,
+                      params=odd).kernel.cuda is not None
+
+
+@pytest.mark.parametrize("kind", ["sw", "eam", "eam_tab"])
+def test_slab_run_segment_card_against_cpu(cuda, kind):
+    """A cut slab (the slab tool's layout, wideband baths at its ends)
+    through 48 plain steps on the card (K9 or K10, K7) against float64 on
+    the CPU, the same injected draws. Cells wide enough that no pair
+    within the cutoff and skin lies near half a period (where float32 and
+    float64 may take different images)."""
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
+    from sclmd_tpu_torch.tools import slab as SL
+    cells = (3, 2, 2) if kind == "sw" else (4, 4, 4)
+    rng = np.random.default_rng(5)
+    out, rs = [], None
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        r = SL.slab_runner(kind, dtype, device, "unused", cells=cells,
+                           nmd=64)
+        if rs is None:
+            rs = [rng.standard_normal((3,) + np.shape(b.nstd))
+                  for b in r.baths]
+        fin, sums, ok = fused_chunk(
+            r._build_system(), bath_factors(r.baths, device),
+            [torch.as_tensor(x, dtype=dtype, device=device) for x in rs],
+            48, 0, None, 12)
+        assert bool(ok)
+        out.append((fin.p, fin.q, sums))
+    for a, b in zip(*out):
+        assert _rel(a, b) < 1e-4

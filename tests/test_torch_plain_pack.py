@@ -113,14 +113,18 @@ def test_packed_operands_share_one_padded_buffer():
 @pytest.mark.parametrize("tt", K7.TILES)
 @pytest.mark.parametrize("shapes,nph", [
     ([(90, 180), (90, 180)], 300), ([(150, 150), (150, 150)], 603),
-    ([(7, 21), (2, 2), (5, 10), (8, 8)], 24), ([(700, 2100)], 2100), ([], 9)])
+    ([(7, 21), (2, 2), (5, 10), (8, 8)], 24), ([(700, 2100)], 2100), ([], 9),
+    ([(864, 864), (864, 864)], 10368)])
 def test_launch_plan_deals_threads_and_memory(shapes, nph, tt):
     """Every bath gets whole warps, at least one K slice and a thread
     for some column; no two regions of shared memory overlap; the
-    partial sums start on 16-byte boundaries."""
+    partial sums start on 16-byte boundaries; the vectors are staged
+    with one or two trajectories per CTA where they fit."""
     plan = K7.launch_plan(shapes, nph, tt)
+    assert plan["staged"] == (tt <= 2 and K7.launch_plan(
+        shapes, nph, tt, staged=True)["smem_bytes"] <= K7.SMEM_LIMIT)
     regions = [(plan["f_off"], tt * nph)]
-    if tt <= 2:
+    if plan["staged"]:
         regions += [(plan[k], tt * nph) for k in
                     ("xs_off", "hs_off", "qs_off", "bs_off")]
         regions.append((plan["ms_off"], nph))
@@ -139,6 +143,44 @@ def test_launch_plan_deals_threads_and_memory(shapes, nph, tt):
     for (a0, n0), (a1, _) in zip(regions, regions[1:]):
         assert a0 + n0 <= a1
     assert 4 * sum(regions[-1]) <= plan["smem_bytes"]
+
+
+@pytest.mark.parametrize("tt", [1, 2])
+def test_launch_plan_reads_a_wide_system_from_global_memory(tt):
+    """The silicon slab (nph 10,368, two wideband baths of 864 DOFs,
+    memory length 1, so K = nc): its five staged vectors and mask would
+    take 248,832 bytes at one trajectory per CTA, over the card's
+    232,448, so the plan reads x, h, q and base from global memory and
+    fits."""
+    shapes = [(864, 864), (864, 864)]
+    plan = K7.launch_plan(shapes, 10368, tt)
+    assert plan["staged"] == 0 and plan["smem_bytes"] <= K7.SMEM_LIMIT
+    assert all(plan[k] == 0 for k in ("xs_off", "hs_off", "qs_off",
+                                      "bs_off", "ms_off"))
+    assert K7.launch_plan(shapes, 10368, tt, staged=True)["smem_bytes"] > \
+        K7.SMEM_LIMIT
+    assert plan["f_off"] == 0 and plan["baths"][0]["v_off"] == \
+        tt * 10368
+
+
+def test_launch_plan_keeps_the_flagship_staged():
+    """At the flagship's shapes (its two electron baths, nph 603) and the
+    primary junction's, every tile of one or two trajectories stays on
+    the staged route with the plan it had before the wide route existed
+    (the same offsets, so the same launch)."""
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools import primary as P
+    for runner, nph in ((F.flagship_runner(torch.float64, "cpu", "unused"),
+                         603),
+                        (P.primary_runner(torch.float64, "cpu", "unused"),
+                         300)):
+        shapes = [(op.bath.nc, op.MT.shape[0])
+                  for op in K7.pack_operands(runner.baths)]
+        for tt in (1, 2):
+            plan = K7.launch_plan(shapes, nph, tt)
+            assert plan["staged"] == 1
+            assert plan == K7.launch_plan(shapes, nph, tt, staged=True)
+            assert plan["xs_off"] == 4 * ((tt * nph + 3) // 4)
 
 
 def test_tile_size_follows_the_card():

@@ -292,3 +292,31 @@ def test_partition_by_axis_matches_jax():
                                           np.asarray(ref[k]))
     with pytest.raises(ValueError, match="no device"):
         partition_by_axis(small[:8])
+
+
+def test_reset_savepq_is_a_no_op_as_in_jax(tmp_path):
+    r, j = _build(tmp_path), _build(tmp_path, jax=True)
+    assert r.ResetSavepq() is None and j.ResetSavepq() is None
+
+
+def test_get_atommass_matches_jax(tmp_path):
+    r, j = _build(tmp_path), _build(tmp_path, jax=True)
+    r.els = j.els = ["C", "H", "Au", "Si"]
+    assert r.get_atommass() == j.get_atommass() == r.mass
+    assert r.mass[0] == pytest.approx(12.011, abs=0.01)
+
+
+def test_apply_constraint_matches_jax():
+    f = np.arange(12.0) - 4.5
+    for constr in (None, [[0, 1, 2]], [range(9, 12), [4]]):
+        got, want = TMD.ApplyConstraint(f, constr), \
+            JMD.ApplyConstraint(f, constr)
+        assert np.array_equal(got, want)
+    assert not TMD.ApplyConstraint(f, [[0]])[0] and f[0] == -4.5
+
+
+def test_sameq_matches_jax():
+    q = np.linspace(0.0, 1.0, 6)
+    for other in (q.copy(), q + 5e-10, q + 2e-9, q[:5]):
+        assert TMD.sameq(q, other) == JMD.sameq(q, other)
+    assert TMD.sameq(q, q + 5e-10) and not TMD.sameq(q, q[:5])
