@@ -111,8 +111,18 @@ not 0 and no result line is printed):
    cell): against its float32 twin on the card and its float64 twin on
    the CPU at 4 trajectories of thermal displacements (force and energy
    within RTOL of the largest), bitwise repeats, zero at rest; at the
-   run's 64 trajectories against its float32 twin again, a bitwise
-   repeat, its time, its twin's and its bound; K3 at the slab's bath
+   run's 64 trajectories and at 65 (a last warp of one lane) against its
+   float32 twin again, a bitwise repeat, trajectories run alone with the
+   same bits as in the batch, the wide route (rows from global memory)
+   with the same bits, how the cutoff tests of a warp's 32 trajectories
+   agree (``tools.slab_bench.lane_agreement``), its time, its twin's
+   and its bound, and PR 9's kernel timed in the same call where a tree
+   of that commit is found (``_checkout/parent`` or ``git archive``: the
+   "earlier" column, before and after phases 18 and 19); on small
+   periodic, open and truncated diamond cells and powers that are not
+   integers, at 1, 37, 64 and 65 trajectories, against its float64 twin
+   (force within RTOL, energy within 1e-5 of the largest), bitwise
+   repeats, zero at rest; K3 at the slab's bath
    factors (nc 864, U read from global memory) and 64 trajectories
    against its twins as phase 16 holds it, and timed; K7 at the slab's
    shapes and 64 trajectories on its unstaged route, against its twins
@@ -123,14 +133,15 @@ not 0 and no result line is printed):
    length 1 read no history): finite currents, ``MDE.npz``, the same
    means within RTOL from one segment, a second call after the kappa
    files are deleted resuming from ``MDE.npz`` (no K9 launch, the same
-   means and files), another chunk refused as a stale checkpoint, and
-   the heat current's sign from the same draws at swapped lead
-   temperatures;
+   means and files), another chunk refused as a stale checkpoint, the
+   lanes' agreement at the run's end state (``MDE.npz``), and the heat
+   current's sign from the same draws at swapped lead temperatures;
 19. K10 ``eam_force`` on the 1,728-atom gold slab (nph 5,184, analytic
    Sutton-Chen and its ``sutton_chen_tables`` tabulation): each mode
-   against its twins as in phase 18, the tabulated force within the
-   splines' own error (the two float64 twins' difference) of the
-   analytic one at the same geometry, K3 at nc 432, K7 (staged), the
+   against its twins as in phase 18 (small fcc cells: periodic, open,
+   truncated, powf powers, tabulated, two elements), the tabulated force
+   within the splines' own error (the two float64 twins' difference) of
+   the analytic one at the same geometry, K3 at nc 432, K7 (staged), the
    analytic slab through every check of phase 18's run, and the
    tabulated one through ``RunEnsemble(64, npie=2, checkpoint=True)``
    with its launch counts.
@@ -432,9 +443,23 @@ def main():
     k3_abs = check_noise_synth(k3_ops)
     phase_crosscheck(dev)
 
-    # 18. the silicon slab (K9), 19. the gold slab (K10)
+    # 18. the silicon slab (K9), 19. the gold slab (K10); PR 9's kernels
+    # timed before and after them on the same inputs (the "earlier"
+    # column, where a tree of that commit is found)
+    tree, why = parent_tree()
+    before = earlier_slab_times(tree)
     k9 = phase_si_slab(dev)
     k10 = phase_gold_slab(dev)
+    after = earlier_slab_times(tree)
+    now = {"sw": k9["times"]["kernel"], "eam": k10["times"]["kernel"],
+           "eam_tab": k10["times_tab"]["kernel"]}
+    earlier = {"commit": PARENT, "tree": why or "found", "before": before,
+               "after": after, "now": now,
+               "sectors_per_request": "not measured (no ncu run)"}
+    if before and after and "error" not in before and "error" not in after:
+        earlier["speedup"] = {k: (before[k] + after[k]) / 2 / now[k]
+                              for k in now}
+    print(json.dumps({"phase": 19, "earlier": earlier}), flush=True)
 
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
@@ -1695,6 +1720,11 @@ def phase_crosscheck(dev, ntraj=256):
 SLAB_NTRAJ = 64           # RunEnsemble trajectories of phases 18 and 19
 SLAB_NSTEPS, SLAB_NPIE = 1024, 2
 SLAB_CHECK_NTRAJ = 4      # trajectories of the checks against the twins
+# K9/K10 against their float64 twins: the energy sums ~1e3 terms of
+# either sign, so it is held to 1e-5 of the largest, the force to RTOL
+SLOT_ENERGY_RTOL = 1e-5
+SLOT_NTRAJ = (1, 37, 64, 65)  # batch sizes of the small-cell checks
+PARENT = "f915d1b"        # the commit whose K9/K10 the "earlier" column times
 
 
 def slab_kernel_checks(dev, phase, name, drv, ref, mod, seed):
@@ -1721,25 +1751,167 @@ def slab_kernel_checks(dev, phase, name, drv, ref, mod, seed):
     assert rel32 <= RTOL and e_rel32 <= RTOL, \
         f"{name}: the kernel disagrees with its float32 twin: {rel32}, " \
         f"{e_rel32}"
+    from sclmd_tpu_torch.kernels import slots
+    from sclmd_tpu_torch.tools.slab_bench import lane_agreement
+    kern = drv.kernel.cuda
+    for n in (SLAB_NTRAJ, SLAB_NTRAJ + 1):
+        qn = _thermal_q(drv, n, dev, seed + 1)
+        e, f = drv.energy_force_torch(qn)
+        e32, f32 = drv.kernel.plain(qn, energy=True)
+        (rel_n, abs_n), e_rel_n = rel_err(f, f32), rel_err(e, e32)[0]
+        bitwise = bool(torch.equal(drv.force_torch(qn), f))
+        # a trajectory alone has the bits it has in the batch
+        alone = all(torch.equal(drv.force_torch(qn[t_:t_ + 1])[0], f[t_])
+                    for t_ in (0, 31, 32, n - 1))
+        # the wide route: rows read from global memory, entries kept in
+        # a global scratch
+        kern.plan = slots.Plan(slots.MAX_WARPS, 0, True)
+        wide = bool(torch.equal(drv.force_torch(qn), f))
+        kern.plan = slots.launch_plan(kern.smem_per_warp(kern.pack))
+        out = {"phase": phase, "case": name, "ntraj": n,
+               "rel_err_float32_twin": rel_n,
+               "max_abs_err_float32_twin": abs_n,
+               "energy_rel_err_float32_twin": e_rel_n,
+               "bitwise_repeat": bitwise, "alone_bitwise": alone,
+               "wide_route_bitwise": wide, "plan": kern.plan._asdict(),
+               "rtol": RTOL}
+        print(json.dumps(out), flush=True)
+        assert rel_n <= RTOL and e_rel_n <= RTOL and bitwise and alone \
+            and wide, out
+        err = max(err, abs_n)
+        del e, f, e32, f32
     n = SLAB_NTRAJ
     qn = _thermal_q(drv, n, dev, seed + 1)
-    e, f = drv.energy_force_torch(qn)
-    e32, f32 = drv.kernel.plain(qn, energy=True)
-    (rel_n, abs_n), e_rel_n = rel_err(f, f32), rel_err(e, e32)[0]
-    bitwise = bool(torch.equal(drv.force_torch(qn), f))
-    out = {"phase": phase, "case": name, "ntraj": n,
-           "rel_err_float32_twin": rel_n, "max_abs_err_float32_twin": abs_n,
-           "energy_rel_err_float32_twin": e_rel_n, "bitwise_repeat": bitwise,
-           "rtol": RTOL}
-    print(json.dumps(out), flush=True)
-    assert rel_n <= RTOL and e_rel_n <= RTOL and bitwise, out
-    err = max(err, abs_n)
-    del e, f, e32, f32
-    w = mod.work_counts(drv.kernel.cuda.pack)
+    rc = kern.pack["params"]["rc"] if "params" in kern.pack \
+        else kern.pack["rc"]
+    lanes = lane_agreement(kern.pack, qn, rc)
+    w = mod.work_counts(kern.pack)
     t = _timed(lambda: drv.force_torch(qn), lambda: drv.kernel.plain(qn),
                None, n * w["ops"], n * w["bytes"] + w["table_bytes"], 20, 3)
     t["work"] = w
+    t["lanes"] = lanes
     return err, t, q
+
+
+def slot_small_cells(dev, phase, family):
+    """K9 ("sw") or K10 ("eam") on small cells against their float64
+    twins at each of SLOT_NTRAJ trajectories of 0.1 angstrom rms: force
+    within RTOL and energy within SLOT_ENERGY_RTOL of the largest,
+    bitwise repeats, zero at rest. SW: a periodic and an open
+    ``diamond_cell(3, 2, 2)``, a table truncated to 10 (not symmetric),
+    powers 4.5 and 0.25 (powf); EAM: a periodic ``fcc_cell(3, 3, 3)``
+    of gold (cutoff 5.5), open, truncated to 30, powers 10.5 and 7.75,
+    its tabulation, and a two-element table. Returns the largest
+    absolute error."""
+    from sclmd_tpu_torch.models import eam as E
+    from sclmd_tpu_torch.models import sw as S
+    if family == "sw":
+        pos, cell = S.diamond_cell(3, 2, 2)
+        axyz = [["Si", *p] for p in pos]
+        real = dict(S.SW_PARAMS["Si"], p=4.5, q=0.25)
+        cases = {"periodic": dict(cell=cell), "open": {},
+                 "truncated": dict(cell=cell, max_nnei=10),
+                 "powf": dict(cell=cell, params=real)}
+        make = S.SWDriver
+    else:
+        pos, cell = E.fcc_cell(3, 3, 3, 4.08)
+        real = dict(E.SUTTON_CHEN_PARAMS["Au"], n=10.5, m=7.75)
+        tab = E.sutton_chen_tables("Au", rcut=5.5, rho_max=600.0)
+        au = [["Au", *p] for p in pos]
+        alloy = [[("Au", "Ag")[i % 2], *p] for i, p in enumerate(pos)]
+        cases = {"periodic": dict(cell=cell, rcut=5.5),
+                 "open": dict(rcut=5.5),
+                 "truncated": dict(cell=cell, rcut=5.5, max_nnei=30),
+                 "powf": dict(cell=cell, rcut=5.5, params=real),
+                 "tabulated": dict(cell=cell, setfl=tab),
+                 "alloy": dict(cell=cell, setfl=_alloy_setfl())}
+        make = E.EAMDriver
+    worst = 0.0
+    for name, kw in cases.items():
+        atoms = alloy if name == "alloy" else \
+            (axyz if family == "sw" else au)
+        drv = make(atoms, dtype=torch.float32, device=dev, **kw)
+        ref = make(atoms, dtype=torch.float64, device="cpu", **kw)
+        assert drv.kernel.cuda is not None, name
+        res = {}
+        for n in SLOT_NTRAJ:
+            q = _thermal_q(drv, n, dev, 100 + n, amp=0.1)
+            e, f = drv.energy_force_torch(q)
+            again = drv.force_torch(q)
+            rest = drv.force_torch(torch.zeros_like(q))
+            torch.cuda.synchronize()
+            e64, f64 = ref.energy_force_torch(q.double().cpu())
+            (rel, err), e_rel = rel_err(f, f64), rel_err(e, e64)[0]
+            res[n] = {"rel": rel, "energy_rel": e_rel,
+                      "bitwise_repeat": bool(torch.equal(f, again)),
+                      "zero_at_rest": not bool(rest.any())}
+            worst = max(worst, err)
+            assert rel <= RTOL and e_rel <= SLOT_ENERGY_RTOL and \
+                res[n]["bitwise_repeat"] and res[n]["zero_at_rest"], \
+                (family, name, n, res[n])
+        print(json.dumps({"phase": phase, "case": f"{family}_{name}",
+                          "atoms": len(atoms), "against_float64": res,
+                          "rtol": RTOL, "energy_rtol": SLOT_ENERGY_RTOL}),
+              flush=True)
+    return worst
+
+
+def _alloy_setfl():
+    """A setfl dict of the Sutton-Chen sets of Au and Ag (cutoff 5.5) on
+    one grid, the cross pair the mean of the two."""
+    from sclmd_tpu_torch.models import eam as E
+    tabs = [E.sutton_chen_tables(e, rcut=5.5, rho_max=600.0)
+            for e in ("Au", "Ag")]
+    t = dict(tabs[0])
+    t.update(elements=["Au", "Ag"], mass=np.zeros(2),
+             F=np.concatenate([x["F"] for x in tabs]),
+             rho=np.concatenate([x["rho"] for x in tabs]),
+             rphi=np.stack([tabs[0]["rphi"][0],
+                            0.5 * (tabs[0]["rphi"][0] + tabs[1]["rphi"][0]),
+                            tabs[1]["rphi"][0]]),
+             pair_index=np.array([[0, 1], [1, 2]], np.int32))
+    return t
+
+
+def parent_tree():
+    """(root, None) of a tree of PARENT, whose K9/K10 the "earlier"
+    column times: this checkout's ``_checkout/parent``, or a ``git
+    archive`` of the commit into a temporary directory; (None, why)
+    where neither is found."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cand = os.path.join(root, "_checkout", "parent")
+    if os.path.isfile(os.path.join(cand, "sclmd_tpu_torch", "tools",
+                                   "slab.py")):
+        return cand, None
+    tmp = tempfile.mkdtemp()
+    try:
+        tar = subprocess.run(["git", "-C", root, "archive", PARENT],
+                             capture_output=True, check=True,
+                             timeout=120).stdout
+        subprocess.run(["tar", "-x", "-C", tmp], input=tar, check=True,
+                       timeout=120)
+        return tmp, None
+    except (OSError, subprocess.SubprocessError) as e:
+        return None, f"no tree of {PARENT}: {type(e).__name__}"
+
+
+def earlier_slab_times(tree):
+    """PR 9's K9 and K10 times at the slabs' 64 trajectories (the same
+    thermal displacements), from ``tools/slab_bench.py --kernels-only``
+    of this tree run on ``tree``'s package in a process of its own;
+    {case: ms}, or the reason it could not run."""
+    if tree is None:
+        return None
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "sclmd_tpu_torch", "tools", "slab_bench.py")
+    env = dict(os.environ, PYTHONPATH=tree)
+    res = subprocess.run([sys.executable, bench, "--kernels-only",
+                          "--label", "parent"], cwd=tree, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        return {"error": res.stderr[-2000:]}
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    return {f["case"]: f["ms"] for f in rec["forces"]}
 
 
 def slab_runs(dev, phase, kind, drv, mod, name, full=True):
@@ -1758,6 +1930,7 @@ def slab_runs(dev, phase, kind, drv, mod, name, full=True):
     from sclmd_tpu_torch.kernels import bath_force as K7
     from sclmd_tpu_torch.kernels import conv_tails as K6
     from sclmd_tpu_torch.tools import slab as SL
+    from sclmd_tpu_torch.tools.slab_bench import lane_agreement
 
     hot, cold = SL.T * (1 + SL.DELTA / 2), SL.T * (1 - SL.DELTA / 2)
     outdir = tempfile.mkdtemp()
@@ -1790,6 +1963,12 @@ def slab_runs(dev, phase, kind, drv, mod, name, full=True):
     assert np.isfinite(ke) and ke > 0.0, ke
     ck = os.path.join(outdir, "MDE.npz")
     assert os.path.isfile(ck)
+    pack = drv.kernel.cuda.pack
+    with np.load(ck) as z:
+        q_end = torch.as_tensor(z["q"], device=dev)
+    lanes_end = lane_agreement(
+        pack, q_end, pack["params"]["rc"] if "params" in pack else pack["rc"])
+    del q_end
     out = {"phase": phase, "case": kind, "nph": r.nph,
            "bath_dofs": [b.nc for b in r.baths], "bath_setup_s": bath_s,
            "launches": launches,
@@ -1798,7 +1977,8 @@ def slab_runs(dev, phase, kind, drv, mod, name, full=True):
                "kinetic_energy_end": ke,
                "J_left": float(means[:, 0].mean()),
                "J_right": float(means[:, 1].mean())}},
-           "checkpoint_mb": os.path.getsize(ck) / 2 ** 20}
+           "checkpoint_mb": os.path.getsize(ck) / 2 ** 20,
+           "lanes_end_state": lanes_end}
     if not full:
         print(json.dumps(out), flush=True)
         return launches
@@ -1886,6 +2066,7 @@ def phase_si_slab(dev):
     assert drv.kernel.cuda is not None
     err, t, _ = slab_kernel_checks(dev, 18, "sw_slab", drv, ref, K9, 18)
     del ref
+    err = max(err, slot_small_cells(dev, 18, "sw"))
     baths = slab_bath_kernels(dev, 18, drv, "sw")
     print(json.dumps({"phase": 18, "driver_setup_s": setup_s, "ms": t,
                       "baths": baths}), flush=True)
@@ -1927,6 +2108,7 @@ def phase_gold_slab(dev):
     bound = spline_err + RTOL * float(f_an.abs().max())
     out["tabulated_vs_analytic"] = {"max_abs": gap, "spline_err": spline_err,
                                     "bound": bound}
+    errs.append(slot_small_cells(dev, 19, "eam"))
     baths = slab_bath_kernels(dev, 19, an, "eam")
     print(json.dumps({"phase": 19, **out, "baths": baths}), flush=True)
     assert gap <= bound, out["tabulated_vs_analytic"]
@@ -1935,7 +2117,8 @@ def phase_gold_slab(dev):
     lt = slab_runs(dev, 19, "eam_tab", tab, K10, "eam_force", full=False)
     launches = {k: la[k] + lt[k] for k in la}
     return {"launches": launches, "abs": max(errs),
-            "times": out["eam"]["ms"], "baths": baths}
+            "times": out["eam"]["ms"], "times_tab": out["eam_tab"]["ms"],
+            "baths": baths}
 
 
 if __name__ == "__main__":

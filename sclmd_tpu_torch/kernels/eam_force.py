@@ -6,12 +6,13 @@ trajectories.
 
 ``EAMForce`` launches the hand-written kernel (csrc/eam_force.cu: one
 kernel with two modes, the analytic gradient over the slot table of
-``kernels.slots``: a centre pass that finds rho_i and F'(rho_i) and then
-every slot's gradient, and the gather) on CUDA tensors and runs the plain
-twin, ``torch.autograd`` of the ported energy function, on CPU tensors.
-The spline coefficients are the twin's own, made once on the host in
-float64 and rounded once to float32. ``analytic_force_numpy`` is the
-kernel's arithmetic in float64 numpy, for the CPU tests.
+``kernels.slots``; a trajectory on each lane, a centre on each warp,
+which finds rho_i and F'(rho_i) and then every slot's gradient) on CUDA
+tensors and runs the plain twin, ``torch.autograd`` of the ported energy
+function, on CPU tensors. The spline coefficients are the twin's own,
+made once on the host in float64 and rounded once to float32.
+``slot_gradients_numpy`` and ``analytic_force_numpy`` are the kernel's
+arithmetic in float64 numpy, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from sclmd_tpu_torch.kernels import slots
 
-launches = 0   # evaluations through the kernel (two launches each)
+launches = 0   # evaluations through the kernel (three launches each)
 
 # float32 operations of an entry inside the cutoff, counted once: its
 # density term (the switch and the powers, or a spline lookup), and what
@@ -105,12 +106,11 @@ def _switch_np(r, r_on, rc):
     return sw, dsw
 
 
-def analytic_force_numpy(pack: dict, q, f0=None):
+def slot_gradients_numpy(pack: dict, q):
     """The kernel's formulas in float64 numpy (per centre rho_i and
     F'(rho_i) from its own row, per slot the pair and density
-    derivatives, then the gather): (energy (traj,), force (traj, nph))
-    for q (traj, nph). The CPU tests hold it against the autograd twin
-    and the JAX package; nothing else calls it."""
+    derivatives): (energy (traj,), dE/dd of every slot (traj, ns, 3), the
+    slots inside the cutoff (traj, ns)) for q (traj, nph)."""
     d = slots.slot_vectors(pack, q)                          # (nt, ns, 3)
     nt = len(d)
     r = np.linalg.norm(d, axis=-1)
@@ -145,18 +145,27 @@ def analytic_force_numpy(pack: dict, q, f0=None):
         dedr = 0.5 * (drp / rs - rp / rs ** 2) + fp[:, si] * drh
     grad = np.where(inside, dedr / rs, 0.0)[..., None] * d
     energy = np.where(inside, e_pair, 0.0).sum(-1) + emb.sum(-1)
-    return energy, slots.gather_numpy(pack, grad, f0)
+    return energy, grad, inside
+
+
+def analytic_force_numpy(pack: dict, q, f0=None):
+    """(energy (traj,), force (traj, nph)) for q (traj, nph): the slots'
+    gradients gathered onto the atoms. The CPU tests hold it against the
+    autograd twin and the JAX package; nothing else calls it."""
+    e, grad, _ = slot_gradients_numpy(pack, q)
+    return e, slots.gather_numpy(pack, grad, f0)
 
 
 class _EamArgs(ctypes.Structure):
     _fields_ = ([("s", slots._SlotArgs)]
                 + [(k, ctypes.c_void_p) for k in (
-                    "fc", "rhoc", "rphic", "type", "slot_t", "slot_pair")]
+                    "fc", "rhoc", "rphic", "type", "slot_tp")]
                 + [(k, ctypes.c_int) for k in ("mode", "n", "m")]
                 + [(k, ctypes.c_float) for k in ("nf", "mf")]
                 + [(k, ctypes.c_int) for k in ("nseg_rho", "nseg_r")]
                 + [(k, ctypes.c_float) for k in (
-                    "eps", "a", "c", "rc", "r_on", "drho", "dr")])
+                    "eps", "a", "c", "rc", "r_on", "drho", "dr", "iw",
+                    "idrho", "idr")])
 
 
 class EAMForceCuda(slots.SlotForceCuda):
@@ -165,6 +174,7 @@ class EAMForceCuda(slots.SlotForceCuda):
     name = "eam_force"
     entry = "eam_force_f32"
     args_type = _EamArgs
+    scalar = True   # a slot's gradient is c d: g holds c
 
     def _fill(self, a):
         p = self.pack
@@ -172,6 +182,7 @@ class EAMForceCuda(slots.SlotForceCuda):
         if p["mode"] == 0:
             for k in ("n", "m", "nf", "mf", "eps", "a", "c", "r_on"):
                 setattr(a, k, p[k])
+            a.iw = 1.0 / (p["rc"] - p["r_on"])
             return
         dev = self.device
 
@@ -184,10 +195,17 @@ class EAMForceCuda(slots.SlotForceCuda):
         put("rhoc", p["rho_c"], torch.float32)
         put("rphic", p["rphi_c"], torch.float32)
         put("type", p["types"], torch.int32)
-        put("slot_t", p["slot_t"], torch.int32)
-        put("slot_pair", p["slot_pair"], torch.int32)
+        put("slot_tp", np.stack([p["slot_t"], p["slot_pair"]], 1),
+            torch.int32)
         a.nseg_rho, a.nseg_r = p["F_c"].shape[1], p["rho_c"].shape[1]
         a.drho, a.dr = p["drho"], p["dr"]
+        a.idrho, a.idr = 1.0 / p["drho"], 1.0 / p["dr"]
+
+    @staticmethod
+    def smem_per_warp(pack: dict) -> int:
+        """Its row's records at the table's widest, and their type and
+        pair words when tabulated."""
+        return pack["width"] * (16 + (8 if pack["mode"] == 1 else 0))
 
     def _count(self):
         global launches

@@ -4,10 +4,12 @@
     f(q) = conv * F(xyz + conv q) - f0,    F = -dE/dx of ``sw_energy``
 
 ``SWForce`` launches the hand-written kernel (csrc/sw_force.cu: the
-analytic gradient over the slot table of ``kernels.slots``, a centre pass
-and a gather) on CUDA tensors and runs the plain twin, ``torch.autograd``
-of the ported energy function, on CPU tensors. ``analytic_force_numpy``
-is the kernel's arithmetic in float64 numpy, for the CPU tests.
+analytic gradient over the slot table of ``kernels.slots``; a trajectory
+on each lane, a centre on each warp, each slot's geometry once) on CUDA
+tensors and runs the plain twin, ``torch.autograd`` of the ported energy
+function, on CPU tensors. ``slot_gradients_numpy`` and
+``analytic_force_numpy`` are the kernel's arithmetic in float64 numpy,
+for the CPU tests.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 
 from sclmd_tpu_torch.kernels import slots
 
-launches = 0   # evaluations through the kernel (two launches each)
+launches = 0   # evaluations through the kernel (three launches each)
 
 # float32 operations of a pair term inside the cutoff (two exponentials,
 # the powers, the radial derivative) and of an ordered angular term
@@ -67,12 +69,11 @@ def work_counts(pack: dict) -> dict:
                 table_bytes=slots.table_bytes(pack))
 
 
-def analytic_force_numpy(pack: dict, q, f0=None):
+def slot_gradients_numpy(pack: dict, q):
     """The kernel's formulas in float64 numpy (per slot: the two-body
-    term and the angular terms against the row's other entries, then the
-    gather): (energy (traj,), force (traj, nph)) for q (traj, nph). The
-    CPU tests hold it against the autograd twin and the JAX package;
-    nothing else calls it."""
+    term and the angular terms against the row's other entries): (energy
+    (traj,), dE/dd of every slot (traj, ns, 3), the slots inside the
+    cutoff (traj, ns)) for q (traj, nph)."""
     p = pack["params"]
     d = slots.slot_vectors(pack, q)                          # (nt, ns, 3)
     r = np.linalg.norm(d, axis=-1)
@@ -106,7 +107,15 @@ def analytic_force_numpy(pack: dict, q, f0=None):
     grad = dr[..., None] * rhat + np.einsum("tsl,tsla->tsa", wk, kh)
     grad = np.where(inside[..., None], grad, 0.0)
     e_slot = np.where(inside, e_slot, 0.0)
-    return e_slot.sum(-1), slots.gather_numpy(pack, grad, f0)
+    return e_slot.sum(-1), grad, inside
+
+
+def analytic_force_numpy(pack: dict, q, f0=None):
+    """(energy (traj,), force (traj, nph)) for q (traj, nph): the slots'
+    gradients gathered onto the atoms. The CPU tests hold it against the
+    autograd twin and the JAX package; nothing else calls it."""
+    e, grad, _ = slot_gradients_numpy(pack, q)
+    return e, slots.gather_numpy(pack, grad, f0)
 
 
 class _SwArgs(ctypes.Structure):
@@ -123,10 +132,21 @@ class SWForceCuda(slots.SlotForceCuda):
     name = "sw_force"
     entry = "sw_force_f32"
     args_type = _SwArgs
+    # per lane and kept entry: the unit vector, h and r; on the wide route
+    # the mask words and the entries' slots too
+    keep = 7
 
     def _fill(self, a):
         for k, v in self.pack["params"].items():
             setattr(a, k, v)
+
+    @classmethod
+    def smem_per_warp(cls, pack: dict) -> int:
+        """Its row's records, 32 lanes' kept entries and the entries'
+        slots at the table's widest, and the lanes' mask words."""
+        w = pack["width"]
+        return w * (16 + 4 * (cls.keep - 2) * slots.LANES + 4) \
+            + -(-w // 32) * 4 * slots.LANES
 
     def _count(self):
         global launches

@@ -1084,12 +1084,13 @@ _AU_REAL = dict(eps=7.8052e-3, a=4.08, c=34.408, n=10.5, m=7.75)
     ("si", dict(params=_SI_REAL)),
     ("au", {}), ("au", dict(max_nnei=30)), ("au", dict(params=_AU_REAL)),
     ("au_tab", {}), ("alloy", {}), ("alloy", dict(max_nnei=30))])
-@pytest.mark.parametrize("ntraj", [1, 37])
+@pytest.mark.parametrize("ntraj", [1, 37, 64, 65])
 def test_slot_forces_match_float64_twin(cuda, kind, kw, ntraj):
     """K9 and K10 (both modes, one and two elements) against their float64
     twins, tables truncated below their occupancy included (not
     symmetric), and powers that are not integers (powf): force within
-    1e-4 and energy within 1e-5 of the largest;
+    1e-4 and energy within 1e-5 of the largest; batches of one, a
+    partial and two whole warps of trajectories and one lane past them;
     one evaluation counted a call; bitwise repeats; exactly zero at
     rest; a single (nph,) vector goes through as a batch of one."""
     from sclmd_tpu_torch.kernels import eam_force as K10
@@ -1130,6 +1131,66 @@ def test_sw_force_through_the_cutoff(cuda):
     fw = ref.force_torch(q.double().cpu())
     assert torch.isfinite(f).all() and x0.shape[0] == drv.number
     assert _rel(f, fw) < 1e-4
+
+
+def test_sw_force_divergent_lanes_keep_their_bits(cuda):
+    """A batch of 40 trajectories (a whole warp and 8 lanes of another)
+    at small displacements, in which trajectories 3, 17 and 35 pull one
+    second neighbour (3.84 angstrom, outside the cutoff of 3.77) inside
+    it: only those lanes of their warps take the slot. Every
+    trajectory's force and energy equal, bitwise, those of the same
+    trajectory run alone, and the force is within 1e-4 of the float64
+    twin."""
+    from sclmd_tpu_torch.kernels import slots
+    drv, ref = _slot_pair("si", cuda)
+    pack = drv.kernel.cuda.pack
+    r0 = np.linalg.norm(pack["d0"], axis=1)
+    k = int(np.nonzero((r0 > 3.8) & (r0 < 3.9))[0][0])
+    i, unit = pack["slot_i"][k], pack["d0"][k] / r0[k]
+    rng = np.random.default_rng(8)
+    u = 0.01 * rng.normal(size=(40, drv.number, 3))
+    pulled = [3, 17, 35]
+    u[pulled, i] += 0.12 * unit
+    qn = u.reshape(40, -1) / drv.conv
+    inside = np.linalg.norm(slots.slot_vectors(pack, qn)[:, k], axis=-1) \
+        < pack["params"]["rc"]
+    assert np.array_equal(np.nonzero(inside)[0], pulled)
+    q = torch.as_tensor(qn, dtype=torch.float32, device=cuda)
+    e, f = drv.energy_force_torch(q)
+    for t in range(40):
+        et, ft = drv.energy_force_torch(q[t:t + 1])
+        assert torch.equal(ft[0], f[t]) and torch.equal(et[0], e[t]), t
+    assert _rel(f, ref.force_torch(q.double().cpu())) < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["si", "si_trunc", "au", "au_tab"])
+def test_slot_force_launch_shapes_give_the_same_bits(cuda, kind):
+    """Every launch shape of the centre pass (1, 2 or 4 centres a block,
+    and the wide route: rows from global memory, K9's kept entries in a
+    global scratch) gives the same bits, at 37 and 64
+    trajectories; the scratch is kept per trajectory stride and the
+    force is a tensor of its own at every call."""
+    from sclmd_tpu_torch.kernels import slots
+    drv, _ = _slot_pair(kind.replace("_trunc", ""), cuda,
+                        **(dict(max_nnei=10) if "trunc" in kind else {}))
+    kern = drv.kernel.cuda
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    conv = torch.as_tensor(drv.conv, dtype=torch.float32, device=cuda)
+    for n in (37, 64):
+        q = 0.1 * torch.randn((n, 3 * drv.number), device=cuda,
+                              generator=gen) / conv
+        want = kern(q, energy=True)
+        for plan in [slots.Plan(w, 0, False) for w in (1, 2, 4)] + [
+                slots.Plan(slots.MAX_WARPS, 0, True)]:
+            smem = 0 if plan.wide else \
+                plan.wpb * kern.smem_per_warp(kern.pack)
+            kern.plan = plan._replace(smem=smem)
+            got = kern(q, energy=True)
+            assert torch.equal(got[1], want[1]), plan
+            assert torch.equal(got[0], want[0]), plan
+            assert got[1].data_ptr() != want[1].data_ptr()
+        kern.plan = slots.launch_plan(kern.smem_per_warp(kern.pack))
+    assert {k[0] for k in kern._scratch} == {32, 64}
 
 
 def test_slot_forces_refuse_what_the_kernel_does_not_take(cuda):

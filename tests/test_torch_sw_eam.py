@@ -15,6 +15,8 @@ the physics checks of tests/test_sw.py and tests/test_eam.py on the
 port.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -401,10 +403,10 @@ def _formula_case(kind):
     pos, cell = TE.fcc_cell(3, 3, 3, 3.61)
     els = ("Cu", "Ag") if kind == "eam_alloy" else ("Cu",)
     axyz = [[els[i % len(els)], *p] for i, p in enumerate(pos)]
-    kw = dict(cell=cell)
+    kw = {} if kind == "eam_open" else dict(cell=cell)
     if kind == "eam_truncated":
         kw["max_nnei"] = 30
-    if kind in ("eam_sc", "eam_truncated", "eam_real"):
+    if kind in ("eam_sc", "eam_open", "eam_truncated", "eam_real"):
         kw["rcut"] = 5.5
         if kind == "eam_real":
             kw["params"] = dict(TE.SUTTON_CHEN_PARAMS["Cu"], n=9.5, m=5.75)
@@ -418,8 +420,8 @@ def _formula_case(kind):
 
 
 @pytest.mark.parametrize("kind", ["sw", "sw_open", "sw_truncated", "sw_real",
-                                  "eam_sc", "eam_truncated", "eam_real",
-                                  "eam_tab", "eam_alloy"])
+                                  "eam_sc", "eam_open", "eam_truncated",
+                                  "eam_real", "eam_tab", "eam_alloy"])
 def test_kernel_formulas_match_autograd(kind):
     """K9's and K10's arithmetic (numpy, float64, per slot from the
     centre's own row, then the gather) against the autograd twin at
@@ -442,28 +444,100 @@ def test_kernel_formulas_match_autograd(kind):
 
 
 def test_slot_table_lists_every_slot_twice():
-    """Each live entry is one slot; each atom's list names, in slot order,
-    the slots it is the tail of (flag 0) and the head of (flag 1); d0 is
-    the minimum-image reference vector."""
+    """Each live entry is one slot, listed once as a tail (in its centre's
+    row, whose share the kernel keeps in registers) and once as a head
+    (in its neighbour's ``head`` list, which the gather walks), each list
+    in rising slot order; the kernel's record holds d0's float32 bits and
+    the head; d0 is the minimum-image reference vector."""
     drv, pack, _ = _formula_case("sw_truncated")
     t = drv.energy_fn.terms
     assert pack["ns"] == int(t["mask"].sum())
     assert np.array_equal(np.diff(pack["row_ptr"]), t["mask"].sum(1))
+    assert pack["width"] == int(t["mask"].sum(1).max()) == 10
     seen = np.zeros((pack["ns"], 2), int)
     for a in range(pack["na"]):
-        ents = pack["csr"][pack["csr_ptr"][a]:pack["csr_ptr"][a + 1]]
-        assert np.all(np.diff(ents) > 0)
-        for ent in ents:
-            s, head = ent >> 1, ent & 1
-            assert (pack["slot_j"] if head else pack["slot_i"])[s] == a
-            seen[s, head] += 1
+        tails = np.arange(pack["row_ptr"][a], pack["row_ptr"][a + 1])
+        heads = pack["head"][pack["head_ptr"][a]:pack["head_ptr"][a + 1]]
+        assert np.all(np.diff(heads) > 0)
+        assert (pack["slot_i"][tails] == a).all()
+        assert (pack["slot_j"][heads] == a).all()
+        seen[tails, 0] += 1
+        seen[heads, 1] += 1
     assert (seen == 1).all()
+    rec = pack["rec"]
+    assert rec.dtype == np.int32 and rec.shape == (pack["ns"], 4)
+    assert np.array_equal(rec[:, 3], pack["slot_j"])
+    assert np.array_equal(np.ascontiguousarray(rec[:, :3]).view(np.float32),
+                          pack["d0"].astype(np.float32))
     x0 = drv.xyz.reshape(-1, 3)
     assert np.linalg.norm(pack["d0"], axis=1).max() < SI_RCUT + 0.4
     d = x0[pack["slot_j"]] - x0[pack["slot_i"]]
     cell = pack["cell"]
     np.testing.assert_allclose(pack["d0"], d - cell * np.round(d / cell),
                                atol=1e-12)
+
+
+def _jax_energy(kind, drv):
+    """The JAX package's energy function on the driver's own table."""
+    t = drv.energy_fn.terms
+    if kind.startswith("sw"):
+        return JS.sw_energy("Si", t["nbr"], t["mask"], cell=t.get("cell"),
+                            params=t["params"])
+    return JE.sutton_chen_energy("Cu", t["nbr"], t["mask"],
+                                 cell=t.get("cell"), params=t["params"],
+                                 rcut=t["rcut"],
+                                 switch_width=t["rcut"] - t["r_on"])
+
+
+_LANE_NTRAJ = 65
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_case(kind):
+    """A case of ``_formula_case`` at _LANE_NTRAJ trajectories of 0.1
+    angstrom rms: the driver, the pack, q, the kernel's slot gradients
+    and cutoff tests (numpy), and the JAX force conv F in q's units."""
+    drv, pack, mod = _formula_case(kind)
+    q = 0.1 * np.random.default_rng(11).normal(
+        size=(_LANE_NTRAJ, 3 * drv.number)) / drv.conv
+    _, grad, inside = mod.slot_gradients_numpy(pack, q)
+    x = drv.xyz.reshape(-1, 3) + (drv.conv * q).reshape(_LANE_NTRAJ, -1, 3)
+    fj = -np.asarray(jax.vmap(jax.grad(_jax_energy(kind, drv)))(
+        jnp.asarray(x))).reshape(_LANE_NTRAJ, -1) * drv.conv
+    return drv, pack, q, grad, inside, fj
+
+
+@pytest.mark.parametrize("ntraj", [1, 37, _LANE_NTRAJ])
+@pytest.mark.parametrize("kind", ["sw", "sw_open", "sw_truncated", "eam_sc",
+                                  "eam_open", "eam_truncated"])
+def test_lane_gather_matches_gather_and_twins(kind, ntraj):
+    """The kernel's route from slot gradients to forces
+    (``slots.gather_lanes_numpy``: a trajectory on each lane, g at (3 k +
+    c) tp + t for K9, the scalar at k tp + t for K10, the live slots of
+    each group, the centres' own shares, the head-only lists, the pad
+    lanes of a last group of 1, 5 or 1 of 32) against ``gather_numpy``,
+    the autograd twin and the JAX package's gradient, within 1e-12 of the
+    largest force in float64; the last trajectory's force alone has the
+    same bits as in the batch."""
+    drv, pack, q, grad, inside, fj = _lane_case(kind)
+    q, grad, inside, fj = q[:ntraj], grad[:ntraj], inside[:ntraj], \
+        fj[:ntraj]
+    d = None if kind.startswith("sw") else slots.slot_vectors(pack, q)
+    f = slots.gather_lanes_numpy(pack, grad, inside, d=d)
+    tol = 1e-12 * np.abs(fj).max()
+    np.testing.assert_allclose(f, slots.gather_numpy(pack, grad), rtol=0,
+                               atol=tol)
+    fw = drv._drv._abs_force(torch.as_tensor(q)).numpy()
+    np.testing.assert_allclose(f, fw, rtol=0, atol=tol)
+    np.testing.assert_allclose(f, fj, rtol=0, atol=tol)
+    alone = slots.gather_lanes_numpy(pack, grad[-1:], inside[-1:],
+                                     d=None if d is None else d[-1:])
+    assert np.array_equal(alone[0], f[-1])
+    if kind.startswith("sw") and ntraj > 1:
+        # second neighbours sit just outside the cutoff: some lanes of a
+        # group take a slot that others do not
+        took = inside[:32].sum(0)
+        assert ((took > 0) & (took < min(ntraj, 32))).any()
 
 
 def test_work_counts_of_the_diamond_lattice():
