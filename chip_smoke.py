@@ -36,7 +36,9 @@ not 0 and no result line is printed):
    the C2R stage on its output (one cuFFT plan and the hand transpose
    ``noise_transpose``, also timed alone against torch's transpose), the
    whole ``schedule_noise``, and the library composition ``torch.randn``
-   + ``torch.matmul``/``torch.einsum`` + ``hfft``; K3b at each thermal
+   + ``torch.matmul``/``torch.einsum`` + ``hfft``, and the C2R stage's
+   one-call counterpart ``torch.fft.hfft`` on the same half spectrum
+   (alone, and made contiguous in the stage's layout); K3b at each thermal
    start by device and event time, with its twin, the composition
    ``torch.rand`` + the same formula, and the whole start (K3b and the
    product); with the least time the card could take for each
@@ -105,7 +107,8 @@ not 0 and no result line is printed):
    harmonic flagship (``antithetic_run`` with the periodic warm start,
    256 trajectories, nmd 2^14, T 300 K, delta T 10 %, seed 11, float32)
    against ``j_nat`` of ``scripts/flagship_negf.npz``: ``|dev_pct| <= 2``
-   and ``sem_pct <= 1``;
+   and ``sem_pct <= 1``, with the deviation from phase 20's ``j_nat``
+   beside it (phase 20 runs before it);
 18. K9 ``sw_force`` on the 3,456-atom silicon slab of
    ``sclmd_tpu_torch.tools.slab`` (nph 10,368, a table 16 wide, periodic
    cell): against its float32 twin on the card and its float64 twin on
@@ -144,7 +147,28 @@ not 0 and no result line is printed):
    the analytic one at the same geometry, K3 at nc 432, K7 (staged), the
    analytic slab through every check of phase 18's run, and the
    tabulated one through ``RunEnsemble(64, npie=2, checkpoint=True)``
-   with its launch counts.
+   with its launch counts;
+20. the harmonic flagship's NEGF on the card (``negf.bpt`` from the
+   committed ``dyn_ev2``, nd 483 after 120 fixed DOFs, leads of 150,
+   4,001 points, complex128 ``torch.linalg`` solves in groups of 32; no
+   hand kernel): T(w) within 1e-9 of max T of the committed ``tm`` at every
+   point, ``landauer_current_natural``'s ``j_nat`` and
+   ``thermalconductance`` within 1e-9 relative of the committed values,
+   the whole grid in one chunk within 1e-12 of max T of the chunks of
+   32 (the solves take groups of 32 either way); the sweep's seconds
+   after a warm-up against its bound (the LU and the column solves'
+   operations at the FP64 tensor-core peak), one group's solve and
+   assembly alone;
+21. ``selfenergy.sig`` at examples/runsig.py's configuration (the
+   graphene strip, layers of four atoms, 401 points) on the card against
+   the CPU, complex128: Sigma_L, Sigma_R and T within 1e-10 of their
+   largest magnitudes and the same decimation count for each frequency
+   at w > 0 (w = 0 is printed: it is ill-conditioned in the reference
+   itself), timed after a warm-up; then ``RunEnsemble(512)`` of an
+   8-atom chain between two lead-block phonon baths
+   (``phbath(K00=, K01=, V01=)``, semi-infinite chain leads, mode "K")
+   on the blocked path (K1, K2, K3, K3b launched), and the heat current's
+   sign from the same draws at swapped lead temperatures.
 
 The workloads are the primary junction of bench.py
 (``sclmd_tpu_torch.tools.primary``: a 100-atom harmonic chain, nph 300,
@@ -205,6 +229,17 @@ KE_BOUND = 100.0
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_HBM = 3.35e12
+# FP64 on the tensor cores (the same data sheet): the NEGF solves' peak
+PEAK_FP64_TC = 67e12
+# the flagship's NEGF on the card (phase 20) against the committed sweep
+# that the JAX package made on the CPU in float64: T(w) within 1e-9 of
+# max T at every point, j_nat and kappa_bpt within 1e-9 relative (the
+# same Caroli solve with the DOFs in another order moves T by 4e-12 of
+# max T, so rounding alone stays 250 times inside); the sweep in chunks
+# of 32 against one chunk of all 4,001 points within 1e-12 of max T
+NEGF_RTOL, NEGF_BATCH_RTOL = 1e-9, 1e-12
+# the decimation on the card against the CPU, both complex128 (phase 21)
+SIG_RTOL = 1e-10
 
 
 def bound_ms(ops, nbytes, peak=PEAK_F32):
@@ -439,9 +474,12 @@ def main():
     # 15. K8 on the periodic sheet
     k8 = phase_tersoff_sheet(dev)
 
-    # 16. K3 and K3b against their twins, 17. the cross-check gate
+    # 16. K3 and K3b against their twins; 20. the flagship's NEGF on the
+    # card, whose j_nat 17, the cross-check gate, reads beside the
+    # committed one (its bar)
     k3_abs = check_noise_synth(k3_ops)
-    phase_crosscheck(dev)
+    negf = phase_negf(dev)
+    phase_crosscheck(dev, negf["j_nat"])
 
     # 18. the silicon slab (K9), 19. the gold slab (K10); PR 9's kernels
     # timed before and after them on the same inputs (the "earlier"
@@ -460,6 +498,10 @@ def main():
         earlier["speedup"] = {k: (before[k] + after[k]) / 2 / now[k]
                               for k in now}
     print(json.dumps({"phase": 19, "earlier": earlier}), flush=True)
+
+    # 21. the lead-block decimation against the CPU, and RunEnsemble
+    # under two lead-block phonon baths
+    phase_lead_blocks(dev)
 
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
@@ -1442,6 +1484,16 @@ def k3_times(fac, dt, nmd, n, lo=0):
         10)
     del xs
     t["c2r_bound"] = 1e3 * K3.c2r_bytes(nmd, n, nc) / PEAK_HBM
+    # the C2R stage's one-call PyTorch counterpart on the same half
+    # spectrum and batch: torch.fft.hfft along frequency, output (n, nc,
+    # nmd); beside it the same made contiguous in the stage's (n, nmd, nc)
+    y = kernel()
+    t["c2r_library"] = cuda_ms(
+        lambda: torch.fft.hfft(y, n=nmd, dim=-1), 10)
+    t["c2r_library_layout"] = cuda_ms(
+        lambda: torch.fft.hfft(y, n=nmd, dim=-1).transpose(-1, -2)
+        .contiguous(), 10)
+    t["c2r_library_name"] = "torch.fft.hfft"
     del y
     t["series"] = cuda_ms(lambda: schedule_noise(
         ev, std, K3_SEED, 0, lo, lo + n, dt, nmd, packed=fac.packed), 10)
@@ -1651,10 +1703,11 @@ def check_noise_synth(ops, nstat=1024):
     return worst
 
 
-def phase_crosscheck(dev, ntraj=256):
+def phase_crosscheck(dev, j_port, ntraj=256):
     """Phase 17: the MD-vs-NEGF thermal conductance of the harmonic
     flagship (``antithetic_run`` warm-started on the periodic attractor,
-    float32 on the card) against the committed NEGF answer."""
+    float32 on the card) against the committed NEGF answer (the bar),
+    and beside it against ``j_port``, phase 20's NEGF on the card."""
     from sclmd_tpu_torch import md as TMD
     from sclmd_tpu_torch import units
     from sclmd_tpu_torch.kernels import noise_synth as K3
@@ -1704,6 +1757,8 @@ def phase_crosscheck(dev, ntraj=256):
            "kappa_md_nw_per_k": j_md / (F.T * F.DELTA) * units.CURCOF,
            "kappa_negf_nw_per_k": float(negf["kappa_nw_per_k"]),
            "j_md": j_md, "j_negf": j_ref, **spent, "wall_s": wall,
+           "j_negf_port": j_port,
+           "dev_pct_port": (j_md - j_port) / j_port * 100,
            "chunks": nchunks, "launches": k3_counts(),
            "dev_pct_bound": GATE_DEV_PCT, "sem_pct_bound": GATE_SEM_PCT}
     print(json.dumps(out), flush=True)
@@ -2119,6 +2174,204 @@ def phase_gold_slab(dev):
     return {"launches": launches, "abs": max(errs),
             "times": out["eam"]["ms"], "times_tab": out["eam_tab"]["ms"],
             "baths": baths}
+
+
+# --- the NEGF stack: complex128 torch.linalg on the card (no hand kernel) --
+def phase_negf(dev):
+    """Phase 20: the harmonic flagship's transmission on the card, full
+    width (nd 483 after the 120 fixed DOFs, baths of 150, 4,001 points,
+    complex128), from the committed ``dyn_ev2`` with the parameters of
+    ``scripts/exp_crosscheck_flagship.py``: the fixed DOFs split in
+    halves, maxomega 0.45 eV, damp 0.1 ps, then ``landauer_current_natural``
+    at T 300 K, delta 0.1, and ``thermalconductance``; against the
+    committed ``tm``, ``j_nat`` and ``kappa_bpt``. The sweep is timed
+    after one warm-up sweep, against its bound (``negf_flops`` at the FP64
+    tensor-core peak), with one group's solve and assembly alone; then
+    the whole grid built in one chunk against chunks of 32. Returns
+    {"j_nat": ...}."""
+    from sclmd_tpu_torch import units
+    from sclmd_tpu_torch.negf import SOLVE_GROUP, landauer_current_natural
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools.negf_bench import negf_flops
+
+    ref = np.load(F.NPZ)
+    t0 = time.perf_counter()
+    b = F.flagship_bpt(dev)
+    setup_s = time.perf_counter() - t0
+    left = b.dofatomofbath[0]
+    npts, nd, nl = b.intnum + 1, b.nd, len(left)
+    b.gettm()                                        # warm-up sweep
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tmn = b.gettm().copy()                           # host: synchronised
+    sweep_s = time.perf_counter() - t0
+    ws_ev, tm = tmn[:, 0] * units.RPC, tmn[:, 1]
+    assert np.allclose(ws_ev, ref["ws_ev"], rtol=1e-15, atol=0), "grid"
+    err = np.abs(tm - ref["tm"])
+    worst = int(np.argmax(err))
+    tm_rel = float(err[worst] / np.abs(ref["tm"]).max())
+    TL, TR = F.T * (1 + F.DELTA / 2), F.T * (1 - F.DELTA / 2)
+    j_nat = float(landauer_current_natural(ws_ev, tm, TL, TR))
+    kappa = b.thermalconductance(F.T, F.DELTA)
+    j_rel = abs(j_nat - float(ref["j_nat"])) / abs(float(ref["j_nat"]))
+    k_rel = abs(kappa - float(ref["kappa_bpt"])) / abs(float(ref["kappa_bpt"]))
+
+    # one group's batched solve alone (the library call the sweep makes
+    # once a group) and the assembly of its matrices
+    w = torch.as_tensor(tmn[1:1 + SOLVE_GROUP, 0], device=dev)
+    a = b._amatrix(w)
+    rhs = b._unit_columns(b._sel(left), SOLVE_GROUP)
+    solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(a, rhs), 5)
+    assemble_ms = cuda_ms(lambda: b._amatrix(w), 5)
+    del a, rhs
+
+    # the whole grid built in one chunk (15 GB of matrices) against
+    # chunks of 32: the solves take the same groups either way
+    b.batch_size = npts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tm_one = b.gettm()[:, 1]
+    one_chunk_s = time.perf_counter() - t0
+    b.batch_size = 32
+    torch.cuda.empty_cache()
+    batch_rel = float(np.abs(tm_one - tm).max() / np.abs(tm).max())
+
+    flops = negf_flops(nd, nl) * npts
+    nbytes = 8 * nd * nd + 8 * npts          # D read once, T written once
+    bound = bound_ms(flops, nbytes, PEAK_FP64_TC)
+    out = {"phase": 20, "nd": nd, "n_left": nl, "points": npts,
+           "dtype": "complex128", "setup_s": setup_s, "sweep_s": sweep_s,
+           "ms_per_point": 1e3 * sweep_s / npts,
+           "groups": -(-npts // SOLVE_GROUP), "group": SOLVE_GROUP,
+           "flops_per_point": negf_flops(nd, nl), "flops": flops,
+           "bound_ms": bound, "bound_by": "operations"
+           if flops / PEAK_FP64_TC > nbytes / PEAK_HBM else "bytes",
+           "share_of_bound": bound / (1e3 * sweep_s),
+           "solve_ms_per_group": solve_ms,
+           "assemble_ms_per_group": assemble_ms,
+           "library_ms": solve_ms * -(-npts // SOLVE_GROUP),
+           "library_name": "torch.linalg.solve_ex",
+           "linalg_library": str(torch.backends.cuda
+                                 .preferred_linalg_library()),
+           "one_chunk_s": one_chunk_s,
+           "tm_rel_err": tm_rel, "tm_worst_point": worst,
+           "tm_worst_w_ev": float(ws_ev[worst]), "max_t": float(tm.max()),
+           "j_nat": j_nat, "j_nat_ref": float(ref["j_nat"]),
+           "j_nat_rel": j_rel, "kappa_bpt": kappa,
+           "kappa_bpt_ref": float(ref["kappa_bpt"]), "kappa_rel": k_rel,
+           "batch_rel_err": batch_rel, "rtol": NEGF_RTOL,
+           "batch_rtol": NEGF_BATCH_RTOL}
+    print(json.dumps(out), flush=True)
+    assert np.isfinite(tm).all() and tm[0] == 0.0, tm[:4]
+    assert tm_rel <= NEGF_RTOL, out
+    assert j_rel <= NEGF_RTOL and k_rel <= NEGF_RTOL, out
+    assert batch_rel <= NEGF_BATCH_RTOL, out
+    return {"j_nat": j_nat}
+
+
+def _sig_pair(dev):
+    """``sig`` at examples/runsig.py's configuration on ``dev`` and on the
+    CPU: the graphene strip ``graphene_ribbon(8, 2)``, the port's float64
+    ``TersoffDriver.dynmat``, layers g0/g1 of four atoms at a quarter of
+    the strip, 0.12 eV, num 400, eta 0.164e-3."""
+    from sclmd_tpu_torch import units
+    from sclmd_tpu_torch.models.tersoff import TersoffDriver, graphene_ribbon
+    from sclmd_tpu_torch.selfenergy import sig
+    x = graphene_ribbon(8, 2)
+    drv = TersoffDriver([["C", *row] for row in x], dtype=torch.float64,
+                        device=dev)
+    d_ps2 = drv.dynmat().numpy() / units.RPC ** 2
+    lay = 3 * (drv.number // 4)
+    g0 = list(range(lay, lay + 12))
+    g1 = list(range(lay + 12, lay + 24))
+    return [sig(d_ps2, 0.12, g0, g1, num=400, eta=0.164e-3, device=d)
+            for d in (dev, "cpu")]
+
+
+def _sig_sweeps(m):
+    """getse("L"), getse("R"), gettm() and their seconds."""
+    t0 = time.perf_counter()
+    out = (m.getse("L"), m.getse("R"), m.gettm()[:, 1])
+    return out, time.perf_counter() - t0
+
+
+def phase_lead_blocks(dev, ntraj=512):
+    """Phase 21: the decimation on the card against the CPU in float64
+    (Sigma_L, Sigma_R, T within SIG_RTOL of their largest magnitudes at w
+    > 0, the same iteration count for each frequency; w = 0 is printed:
+    (w + i eta)^2 = -eta^2 is real there and the strip's layer block is
+    indefinite, so that point is ill-conditioned in the reference
+    itself), timed after one warm-up; then ``RunEnsemble`` of the 8-atom
+    chain of tests/test_crosscheck.py's UseK tier with two lead-block
+    phonon baths (``phbath(K00=, K01=, V01=)``: semi-infinite chain
+    leads, mode "K"), float32, the blocked path, and the same draws at
+    swapped lead temperatures: heat flows hot to cold."""
+    from sclmd_tpu_torch import baths as B
+    from sclmd_tpu_torch.kernels import block_corr as K2
+    from sclmd_tpu_torch.kernels import gle_block as K1
+    from sclmd_tpu_torch.md import md
+    from sclmd_tpu_torch.models.harmonic import chain_dynmat
+
+    card, cpu = _sig_pair(dev)
+    _sig_sweeps(card)                                # warm-up
+    got, card_s = _sig_sweeps(card)
+    want, cpu_s = _sig_sweeps(cpu)
+    errs = {}
+    for name, g, w in zip(("sigma_L", "sigma_R", "tm"), got, want):
+        errs[name] = float(np.abs(g[1:] - w[1:]).max() / np.abs(w[1:]).max())
+        errs[name + "_w0"] = float(np.abs(g[0] - w[0]).max()
+                                   / max(np.abs(w[0]).max(), 1e-300))
+    niter = {d: (card.niter[d], cpu.niter[d]) for d in ("L", "R")}
+    same_niter = all(np.array_equal(a[1:], b[1:]) for a, b in niter.values())
+    out = {"phase": 21, "points": len(card.ep), "n_layer": len(card.K00),
+           "decimation_and_tm_s": card_s, "cpu_s": cpu_s,
+           "max_niter": int(max(a.max() for a, _ in niter.values())),
+           "niter_w0": {d: [int(a[0]), int(b[0])] for d, (a, b)
+                        in niter.items()},
+           "same_niter_w_gt_0": same_niter, "rel_err": errs,
+           "rtol": SIG_RTOL}
+
+    k, nph, dt, T, delta, nmd, ml = 0.04, 8, 0.25 / 0.658, 300.0, 0.5, \
+        2 ** 11, 128
+    K00, K01, V01 = np.array([[2 * k]]), np.array([[-k]]), np.array([[-k]])
+    hot, cold = T * (1 + delta / 2), T * (1 - delta / 2)
+
+    def runner(temps):
+        r = md(dt, nmd, T, dyn=chain_dynmat(nph, k).numpy(),
+               dtype=torch.float32, seed=5, outdir=tempfile.mkdtemp(),
+               device=dev)
+        for cid, tt in zip(([0], [nph - 1]), temps):
+            r.AddBath(B.phbath(tt, cid, np.sqrt(k), 400, dt, nmd, ml=ml,
+                               K00=K00, K01=K01, V01=V01, mcof=2.2,
+                               dtype=torch.float32, device=dev))
+        return r
+
+    fwd_r = runner((hot, cold))
+    assert all(b.UseK() and b.mode == "K" for b in fwd_r.baths)
+    K1.reset_count()
+    K2.reset_count()
+    reset_k3()
+    t0 = time.perf_counter()
+    fwd = fwd_r.RunEnsemble(ntraj, nsteps=nmd, block=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gle_near": K1.launches_near, "gle_far": K1.launches_far,
+                "block_corr_freq": K2.launches, **k3_counts()}
+    rev = runner((cold, hot)).RunEnsemble(ntraj, nsteps=nmd, block=64)
+    j = (fwd - rev) / 2                       # common random numbers
+    out["run"] = {"ntraj": ntraj, "nsteps": nmd, "s": wall,
+                  "launches": launches,
+                  "J_left": float(j[:, 0].mean()),
+                  "J_right": float(j[:, 1].mean()),
+                  "J_sem": (j.std(axis=0) / np.sqrt(ntraj)).tolist()}
+    print(json.dumps(out), flush=True)
+    assert max(v for kk, v in errs.items() if not kk.endswith("_w0")) \
+        <= SIG_RTOL, errs
+    assert same_niter, niter
+    assert all(np.isfinite(x).all() for x in got), "non-finite sweep"
+    assert min(launches.values()) > 0, launches
+    assert np.isfinite(fwd).all() and np.isfinite(rev).all()
+    assert out["run"]["J_left"] > 0 > out["run"]["J_right"], out["run"]
 
 
 if __name__ == "__main__":

@@ -10,9 +10,6 @@ The per-step force rules of the plain integrator (``step_plan``,
 ``force_pred``, ``force_corr``) take (traj, nc) rows and are the plain
 torch forms of kernels K6 (``kernels.conv_tails``) and K7
 (``kernels.bath_force``).
-
-Not ported yet (ROADMAP queue 1): the K00/K01/V01 lead-block mode of
-``phbath`` that needs the decimation self-energy.
 """
 
 from __future__ import annotations
@@ -322,6 +319,19 @@ class PhBath:
     def kernel_im(self) -> torch.Tensor:
         return _kernel_im(self.kernel)
 
+    # --- the reference's mode predicates: the builder consumes sig/K00
+    # (deriving gamma), so they report the recorded build mode; a "K"
+    # bath also went through the Sigma -> Gamma derivation, and every
+    # built bath carries a Gamma table
+    def UseG(self) -> bool:
+        return self.gamma is not None and self.gwl is not None
+
+    def UsePi(self) -> bool:
+        return self.mode in ("Pi", "K")
+
+    def UseK(self) -> bool:
+        return self.mode == "K"
+
     # --- the plain step (md.run_segment) --------------------------------
     # The step evaluates the bath force three times with histories that
     # share all but the newest one or two taps, so both shared tails
@@ -384,24 +394,32 @@ def phbath(T, cats, debye, nw, dt, nmd, ml=None, mcof=2.0,
            sig=None, gamma=None, gwl=None,
            K00=None, K01=None, V01=None, eta_ad=0.0,
            classical: bool = False, zpmotion: bool = True,
-           dtype=torch.float32, device=None,
+           dtype=torch.float32, nwse: int = 400, device=None,
            factorize: bool = True) -> PhBath:
     """Build a phonon bath, as ``sclmd_tpu.baths.phbath``.
 
-    Modes: sig + gwl (Gamma = -Im Sigma / w), gamma + gwl (used
-    directly), else the local Debye model Gamma = (w_D pi / 6) I. The
+    Modes, in the reference's order: K00/K01/V01 lead blocks (Sigma(w)
+    on an ``nwse``-point grid up to wmax by the decimation surface
+    Green's function on the host,
+    ``selfenergy.lead_selfenergy_from_blocks_np``, then as sig; mode
+    "K"); sig + gwl (Gamma = -Im Sigma / w); gamma + gwl (used
+    directly); else the local Debye model Gamma = (w_D pi / 6) I. The
     returned bath carries its time-domain kernel on ``device`` (default:
     the CUDA card).
     """
     device = resolve_device(device)
-    if K00 is not None and K01 is not None and V01 is not None:
-        raise NotImplementedError(
-            "phbath: the K00/K01/V01 lead-block mode needs the decimation "
-            "self-energy, not ported yet (ROADMAP queue 1 item 4)")
     cats_np = np.asarray(cats, dtype=np.int64)
     nc = int(cats_np.shape[0])
     wmax = float(mcof * debye)
     local = False
+
+    lead_blocks = K00 is not None and K01 is not None and V01 is not None
+    if lead_blocks:
+        from sclmd_tpu_torch.selfenergy import lead_selfenergy_from_blocks_np
+        gwl = np.linspace(0.0, wmax, nwse)
+        sig = lead_selfenergy_from_blocks_np(
+            np.asarray(K00, np.float64), np.asarray(K01, np.float64),
+            np.asarray(V01, np.float64), gwl)
 
     if sig is not None and gwl is not None:
         sig = np.asarray(sig)
@@ -409,7 +427,7 @@ def phbath(T, cats, debye, nw, dt, nmd, ml=None, mcof=2.0,
             raise ValueError("phbath: inconsistent cids and sig")
         gwl_np = np.asarray(gwl, np.float64)
         gamma_np = ggamma(sig, gwl_np)
-        mode = "Pi"
+        mode = "K" if lead_blocks else "Pi"
     elif gamma is not None and gwl is not None:
         gamma_np = np.asarray(gamma, np.float64)
         if gamma_np.shape[-1] != nc:

@@ -19,6 +19,10 @@ import numpy as np
 import torch
 
 NMD, T, DELTA = 1024, 300.0, 0.1
+# the NEGF sweep of scripts/exp_crosscheck_flagship.py that made the npz:
+# up to 0.45 eV (above the C-H stretch band), wideband leads of 0.1 ps,
+# 4,000 intervals
+MAXOMEGA_EV, DAMP_PS, NUM = 0.45, 0.1, 4000
 DT = 0.25 / 0.658
 DAMP = 100 / 0.658211814201041          # 100 fs in natural time units
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -56,6 +60,22 @@ def flagship_runner(dtype, device, outdir, nmd: int = NMD, seed: int = 11,
                           efric=eta, dtype=dtype, device=device))
     r.AddConstr([part["fixdofs"]])
     return r
+
+
+def flagship_bpt(device):
+    """``negf.bpt`` of the flagship junction on ``device``, as the JAX
+    package's script made the committed sweep: ``dyn_ev2`` in ps^-2, the
+    120 fixed DOFs split in two halves, the lead DOFs of each side as the
+    two wideband baths (nd 483, 150 DOFs a lead, 4,001 points)."""
+    from sclmd_tpu_torch import units
+    from sclmd_tpu_torch.negf import bpt
+
+    _, part, dyn = flagship_junction()
+    fix = part["fixdofs"]
+    return bpt(dyn / units.RPC ** 2, MAXOMEGA_EV, DAMP_PS,
+               [part["ecatsl"], part["ecatsr"]],
+               [fix[:len(fix) // 2], fix[len(fix) // 2:]], num=NUM,
+               device=device)
 
 
 def chunk_sizes(system, ntraj: int) -> list:

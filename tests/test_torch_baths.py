@@ -117,10 +117,19 @@ def test_from_jax_bath_roundtrip():
 
 
 def test_lead_block_mode_not_ported():
+    """The K00/K01/V01 lead-block mode no longer raises: at the same
+    blocks it builds the JAX package's mode "K" bath (the decimated
+    Sigma's Gamma table and kernel within 1e-10 of their largest)."""
     k = np.eye(2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TB.phbath(300.0, range(2), 0.3, 32, 0.4, 64, ml=8, K00=k, K01=k,
-                  V01=k, device="cpu")
+    kw = dict(ml=8, K00=k, K01=k, V01=k)
+    tb = TB.phbath(300.0, range(2), 0.3, 32, 0.4, 64, dtype=torch.float64,
+                   device="cpu", **kw)
+    jb = JB.phbath(300.0, range(2), 0.3, 32, 0.4, 64, dtype=jnp.float64,
+                   **kw)
+    assert tb.mode == jb.mode == "K" and tb.UseK()
+    for got, want in ((tb.gamma, np.asarray(jb.gamma)),
+                      (tb.kernel.numpy(), np.asarray(jb.kernel))):
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
 
 
 def test_noncontiguous_cids_use_index_columns():

@@ -15,6 +15,8 @@ from sclmd_tpu_torch import resolve_device
 from sclmd_tpu_torch.models.eam import EAMDriver
 from sclmd_tpu_torch.models.harmonic import HarmonicDriver, chain_dynmat
 from sclmd_tpu_torch.models.sw import SWDriver
+from sclmd_tpu_torch.negf import bpt
+from sclmd_tpu_torch.selfenergy import sig, surface_gf
 
 DYN = chain_dynmat(6, 0.05).numpy()
 GWL = np.linspace(0.0, 0.6, 8)
@@ -32,6 +34,12 @@ ENTRY_POINTS = {
                                  ["Si", 2.35, 0.0, 0.0]], **kw),
     "eam": lambda **kw: EAMDriver([["Au", 0.0, 0.0, 0.0],
                                    ["Au", 2.88, 0.0, 0.0]], **kw),
+    "bpt": lambda **kw: bpt(DYN, 0.5, 20.0, [[0], [5]], num=4, **kw),
+    "sig": lambda **kw: sig(DYN + 2 * np.eye(6), 0.5, [2, 3], [4, 5], num=4,
+                            eta=1e-2, **kw),
+    "surface_gf": lambda **kw: surface_gf(
+        [0.1, 0.2], np.eye(2) * 0.2, np.eye(2) * 0.2, -np.eye(2) * 0.1,
+        **kw),
 }
 
 
@@ -57,6 +65,9 @@ def test_cpu_on_request(no_card, name):
         "harmonic": lambda h: [h.dyn, h.f0],
         "sw": lambda d: [d.f0],
         "eam": lambda d: [d.f0],
+        "bpt": lambda b: [b._D, b.retargf(0.1)],
+        "sig": lambda m: [m.sgf(0.1, "L")],
+        "surface_gf": lambda out: list(out),
     }[name](built)
     assert all(t.device.type == "cpu" for t in tensors)
     if name == "md":

@@ -1237,3 +1237,87 @@ def test_slab_run_segment_card_against_cpu(cuda, kind):
         out.append((fin.p, fin.q, sums))
     for a, b in zip(*out):
         assert _rel(a, b) < 1e-4
+
+
+# --- the NEGF stack on the card: complex128 torch.linalg (no hand kernel)
+def _free_chain_ps2(n=10, k=0.1):
+    """A free 1-D chain's dynamical matrix in ps^-2 (singular: its
+    translation)."""
+    from sclmd_tpu_torch import units
+    d = np.zeros((n, n))
+    for i in range(n - 1):
+        d[i, i] += k
+        d[i + 1, i + 1] += k
+        d[i, i + 1] -= k
+        d[i + 1, i] -= k
+    return d / units.RPC ** 2
+
+
+def _within(got, want, tol=1e-10):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def test_bpt_gettm_card_against_cpu(cuda):
+    """The Caroli sweep on the card against the CPU, w = 0 included (a
+    singular matrix there: 0, no error), two chunk sizes."""
+    from sclmd_tpu_torch.negf import bpt
+    d = _free_chain_ps2()
+    want = bpt(d, 0.7, 20.0, [[0, 1], [8, 9]], num=40,
+               device="cpu").gettm()
+    for bs in (7, 41):
+        got = bpt(d, 0.7, 20.0, [[0, 1], [8, 9]], num=40, batch_size=bs,
+                  device=cuda).gettm()
+        assert got[0, 1] == 0.0
+        _within(got[:, 1], want[:, 1])
+
+
+def test_bpt_biased_getps_card_against_cpu(cuda):
+    """The bias branch of the power spectrum (solve on A^T, the Keldysh
+    block) and the equilibrium branch, card against CPU."""
+    from sclmd_tpu_torch.negf import bpt
+    d = _free_chain_ps2(6)
+    out = []
+    for device in (cuda, "cpu"):
+        b = bpt(d, 0.7, 20.0, [[0], [5]], num=10, device=device)
+        eq = b.getps(300.0, 0.6, 15).copy()
+        b.setbias(0.05, bdamp=np.eye(2) * 0.02, chiplus=np.eye(2) * 0.01,
+                  chiminus=np.eye(2) * 0.005, dofatomofbias=[2, 3])
+        out.append((eq, b.getps(300.0, 0.6, 15)))
+    for got, want in zip(*out):
+        assert np.isfinite(got).all()
+        _within(got[:, 1], want[:, 1])
+
+
+def test_surface_gf_card_against_cpu(cuda):
+    """The batched decimation with frozen carries: G within 1e-10 of its
+    largest magnitude and the same iteration count for each frequency."""
+    from sclmd_tpu_torch.selfenergy import surface_gf
+    k = 0.1
+    K00 = np.array([[2 * k, -k], [-k, 2 * k]])
+    K01 = np.array([[0.0, 0.0], [-k, 0.0]])
+    ws = np.array([0.05, 2.0, 0.6, 1.5, 0.3, 0.631, 3.0, 0.01])
+    g, it, conv = surface_gf(ws, K00, K00, K01, eta=1e-5, device=cuda)
+    gh, ith, convh = surface_gf(ws, K00, K00, K01, eta=1e-5, device="cpu")
+    assert g.device.type == "cuda" and g.dtype == torch.complex128
+    np.testing.assert_array_equal(it.cpu().numpy(), ith.numpy())
+    assert bool(conv.all()) and bool(convh.all())
+    assert len(set(ith.tolist())) >= 3
+    _within(g.cpu().numpy(), gh.numpy())
+
+
+def test_negf_no_singular_error_at_zero(cuda):
+    """w = 0 on a free chain: T, the power spectrum, G itself and a lead
+    self-energy come back without a singular-matrix error."""
+    from sclmd_tpu_torch.negf import bpt
+    from sclmd_tpu_torch.selfenergy import lead_selfenergy_from_blocks
+    b = bpt(_free_chain_ps2(), 0.7, 20.0, [[0, 1], [8, 9]], num=4,
+            device=cuda)
+    assert b.tm(0.0) == 0.0
+    ps = b._ps_batch(np.array([0.0, 0.1]), 300.0, range(10))
+    assert float(ps[0]) == 0.0 and bool(torch.isfinite(ps).all())
+    assert b.retargf(0.0).shape == (10, 10)
+    se = lead_selfenergy_from_blocks(np.array([[0.2]]), np.array([[-0.1]]),
+                                     np.array([[-0.1]]), [0.0, 0.1],
+                                     eta=0.0, device=cuda)
+    assert se.shape == (2, 1, 1)

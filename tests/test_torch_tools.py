@@ -163,7 +163,24 @@ def test_card_scripts_refuse_without_cuda(monkeypatch):
         PE.main(["--out", "unused"])
 
 
-@pytest.mark.parametrize("tool", ["blocked_bench", "k1_sweep"])
+def test_flagship_bpt_setup_cpu():
+    """The flagship's NEGF set-up that chip_smoke phase 20 and
+    ``tools.negf_bench`` share: nd 483 after the 120 fixed DOFs, leads of
+    150 DOFs, 4,001 points up to 0.45 eV, and the sweep's operation
+    count (5.8e8 a point)."""
+    from sclmd_tpu_torch import units
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools.negf_bench import negf_flops
+    b = F.flagship_bpt("cpu")
+    assert b.nd == 483 and b.intnum + 1 == 4001
+    assert [len(g) for g in b.dofatomofbath] == [150, 150]
+    assert b.maxomega * units.RPC == pytest.approx(0.45)
+    assert b._D.device.type == "cpu" and b._D.shape == (483, 483)
+    assert negf_flops(483, 150) == pytest.approx(5.804e8, rel=1e-3)
+
+
+@pytest.mark.parametrize("tool", ["blocked_bench", "k1_sweep",
+                                  "negf_bench"])
 def test_card_tools_refuse_the_cpu(monkeypatch, tool):
     """The measurement tools time the card and stop without one instead
     of timing the CPU."""
