@@ -168,7 +168,34 @@ not 0 and no result line is printed):
    8-atom chain between two lead-block phonon baths
    (``phbath(K00=, K01=, V01=)``, semi-infinite chain leads, mode "K")
    on the blocked path (K1, K2, K3, K3b launched), and the heat current's
-   sign from the same draws at swapped lead temperatures.
+   sign from the same draws at swapped lead temperatures;
+22. the Lambda pipeline (``postprocess.lambda_pipeline``) and
+   ``postprocess.hssigma.kaverage_extract`` on the card (complex128
+   ``torch.linalg``, ``torch.fft`` and complex GEMMs; no hand kernel):
+   the spectral functions, ``wideband``, every array of ``full_lambda``
+   and ``kaverage_extract`` at 4 k points against the CPU within 1e-9 of
+   their largest values, at examples/current_induced/rundp.py's model
+   with 24 orbitals, 12 modes and 512 energies; then at 96 orbitals, 60
+   modes and 2048 energies ``LambdaPipeline.write`` timed by section
+   (the spectral functions, ``wideband``, each of the ten correlations)
+   against its FP64 bound, with ``mode_chunk``, the peak memory and the
+   invariants (eta symmetric, xim and zeta2 antisymmetric, LamEqu
+   real-symmetric, zero outside the hwcut mask); ``kaverage_extract`` at
+   8 k points, 96 orbitals, 512 energies, timed;
+23. the harmonic flagship with a third electron bath on its 183 centre
+   DOFs at T 300 K, bias 0.5 (``tools.flagship.biased_flagship_runner``;
+   its five matrices from ``LambdaPipeline.wideband`` on the card at
+   rundp's model with 96 orbitals and the 183 DOFs as modes, scaled to
+   the leads' friction, written with ``WritewbLambda`` and read back):
+   ``RunEnsemble(256)`` with K7 three times a step (the biased bath on
+   its wind/Berry route), K3 per bath and chunk (the leads proportional,
+   the centre on the per-frequency route), K3b per chunk, no
+   ``torch.Generator``, bounded kinetic energy; ``calHF(bathnum=3)`` and
+   ``calTC(delta=0.1, bathnum=3)`` on its 768 kappa files against the
+   run's mean currents to the files' printed precision; 48 steps of 2
+   trajectories on the card against float64 on the CPU within 1e-4 of the
+   largest; K3's per-frequency route on this bath's factors (nf 513, nc
+   183) against its twins as phase 16 holds it, and timed.
 
 The workloads are the primary junction of bench.py
 (``sclmd_tpu_torch.tools.primary``: a 100-atom harmonic chain, nph 300,
@@ -240,6 +267,15 @@ PEAK_FP64_TC = 67e12
 NEGF_RTOL, NEGF_BATCH_RTOL = 1e-9, 1e-12
 # the decimation on the card against the CPU, both complex128 (phase 21)
 SIG_RTOL = 1e-10
+# the Lambda pipeline and kaverage_extract on the card against the CPU,
+# both complex128 (phase 22), each output relative to its largest value
+LAMBDA_RTOL = 1e-9
+# phase 22's shapes: (orbitals, modes, energies, k points) of the card
+# against the CPU; (orbitals, modes, energies, mode_chunk) of the full
+# size; (k points, orbitals, energies) of kaverage_extract at full size
+LAMBDA_SMALL = (24, 12, 512, 4)
+LAMBDA_FULL = (96, 60, 2048, 8)
+KAVERAGE_FULL = (8, 96, 512)
 
 
 def bound_ms(ops, nbytes, peak=PEAK_F32):
@@ -503,6 +539,12 @@ def main():
     # under two lead-block phonon baths
     phase_lead_blocks(dev)
 
+    # 22. the Lambda pipeline and HSSigma on the card; 23. the flagship
+    # under a biased centre bath from the pipeline (K7's bias route, K3's
+    # per-frequency route) and its kappa files read back
+    phase_lambda(dev, smi)
+    p23 = phase_current_induced(dev, smi)
+
     # the per-kernel line gives the times at the smallest chunk shape
     t = times[shapes[0]]
     # K6 at one trajectory; K7 at one primary trajectory (two thirds of
@@ -517,7 +559,8 @@ def main():
     # the series' layout kernel at the flagship's largest chunk
     tr_t = times["noise_synth"]["flagship_1024"]["transpose"]
     main_runs = [launches, run_launches, ens_launches, mb_launches,
-                 k8["launches"], k9["launches"], k10["launches"]]
+                 k8["launches"], k9["launches"], k10["launches"],
+                 p23["launches"]]
 
     def row(name, source, replaces, launches_, err, tm):
         return {"name": name, "route": "cuda", "source": source,
@@ -544,7 +587,8 @@ def main():
             "a5170d2:sclmd_tpu/ops/kernels.py:98",
             run_launches["bath_force"] + ens_launches["bath_force"]
             + mb_launches["bath_force"] + k9["launches"]["bath_force"]
-            + k10["launches"]["bath_force"],
+            + k10["launches"]["bath_force"]
+            + p23["launches"]["bath_force"],
             max(k7_abs, k9["baths"]["k7_abs_err"],
                 k10["baths"]["k7_abs_err"]), k7_t),
         row("ch_force", "sclmd_tpu_torch/csrc/ch_force.cu",
@@ -557,7 +601,7 @@ def main():
             "sclmd_tpu/ops/noise.py:186",
             sum(c["noise_synth"] for c in main_runs),
             max(k3_abs["noise_synth"], k9["baths"]["k3_abs_err"],
-                k10["baths"]["k3_abs_err"]), k3_t),
+                k10["baths"]["k3_abs_err"], p23["k3_abs"]), k3_t),
         row("init_draw", "sclmd_tpu_torch/csrc/noise_synth.cu",
             "sclmd_tpu/md.py:120",
             sum(c["init_draw"] for c in main_runs), k3_abs["init_draw"],
@@ -566,7 +610,8 @@ def main():
             "sclmd_tpu/ops/noise.py:205",
             sum(c["noise_transpose"] for c in main_runs),
             max(k3_abs["noise_transpose"], k9["baths"]["transpose_abs_err"],
-                k10["baths"]["transpose_abs_err"]), tr_t),
+                k10["baths"]["transpose_abs_err"], p23["transpose_abs"]),
+            tr_t),
         row("sw_force", "sclmd_tpu_torch/csrc/sw_force.cu",
             "sclmd_tpu/models/sw.py:63", k9["launches"]["sw_force"],
             k9["abs"], k9["times"]),
@@ -2372,6 +2417,273 @@ def phase_lead_blocks(dev, ntraj=512):
     assert min(launches.values()) > 0, launches
     assert np.isfinite(fwd).all() and np.isfinite(rev).all()
     assert out["run"]["J_left"] > 0 > out["run"]["J_right"], out["run"]
+
+
+# --- the Lambda pipeline, HSSigma and the current-induced-force run --------
+def _dict_err(got, want):
+    """{key: max |got-want| / max |want|} over the keys of ``want``."""
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        g = g if torch.is_tensor(g) else torch.as_tensor(np.asarray(g))
+        w = w if torch.is_tensor(w) else torch.as_tensor(np.asarray(w))
+        out[k] = rel_err(g, w)[0]
+    return out
+
+
+def kaverage_model(n, nk, ne, seed=22):
+    """k-resolved inputs of ``kaverage_extract``: rundp's model Hamiltonian
+    (``n`` orbitals) with a k-dependent hopping, its leads on
+    ``fft_order_grid(4.0, ne)`` scaled per k, uniform k weights."""
+    from sclmd_tpu_torch.examples.current_induced.rundp import model
+    H, S, E, SigL, SigR, _, _ = model(n_el=n, nm=1, ne=ne)
+    rng = np.random.default_rng(seed)
+    t = rng.normal(size=(n, n)) * 0.1
+    ks = np.linspace(0.0, np.pi, nk, endpoint=False)
+    Hk = np.stack([H + np.cos(k) * (t + t.T) / 2
+                   + 1j * np.sin(k) * (t - t.T) / 2 for k in ks])
+    Sk = np.broadcast_to(S, (nk, n, n)).copy()
+    fk = (1.0 + 0.1 * np.cos(ks))[None, :, None, None]
+    return (Hk, Sk, SigL[:, None] * fk, SigR[:, None] * fk[..., ::-1, :, :],
+            E, np.full(nk, 1.0 / nk))
+
+
+def phase_lambda(dev, smi):
+    """Phase 22: (a) the Lambda pipeline and ``kaverage_extract`` on the
+    card against the CPU, both complex128, at rundp's model with 24
+    orbitals, 12 modes, 512 energies (kaverage at 4 k points): every
+    output within LAMBDA_RTOL of its largest value; (b) at full size (96
+    orbitals, 60 modes, 2048 energies, hwcut 0.05, muL/muR +-0.25,
+    mode_chunk 8) ``LambdaPipeline.write`` timed by section against its
+    FP64 bound, its peak memory and the invariants (eta symmetric, xim and
+    zeta2 antisymmetric, LamEqu real-symmetric, zero outside the hwcut
+    mask); then ``kaverage_extract`` at 8 k points, 96 orbitals, 512
+    energies, timed against its bound."""
+    from sclmd_tpu_torch.examples.current_induced.rundp import model
+    from sclmd_tpu_torch.postprocess import hssigma as HS
+    from sclmd_tpu_torch.postprocess import lambda_pipeline as LP
+    from sclmd_tpu_torch.utils.profiling import Tracer
+
+    hwcut, muL, muR = 0.05, 0.25, -0.25
+    small = LAMBDA_SMALL
+    # (a) card against the CPU
+    args = model(n_el=small[0], nm=small[1], ne=small[2])
+    pls = [LP.LambdaPipeline(*args, device=d) for d in (dev, "cpu")]
+    errs = {"spectral": _dict_err(pls[0].sp, pls[1].sp)}
+    outs = [(p.wideband(hwcut), p.full_lambda(hwcut, muL, muR))
+            for p in pls]
+    errs["wideband"] = _dict_err(outs[0][0], outs[1][0])
+    errs["full_lambda"] = _dict_err(outs[0][1], outs[1][1])
+    kargs = kaverage_model(small[0], small[3], small[2])
+    kav = [HS.kaverage_extract(*kargs, eta=1e-3, device=d)
+           for d in (dev, "cpu")]
+    errs["kaverage"] = _dict_err(kav[0], kav[1])
+    worst = max(v for e in errs.values() for v in e.values())
+    print(json.dumps({"phase": 22, "case": "card_vs_cpu", "n_el": small[0],
+                      "nm": small[1], "ne": small[2], "nk": small[3],
+                      "rel_err": errs,
+                      "rtol": LAMBDA_RTOL, "card": smi}), flush=True)
+    assert worst <= LAMBDA_RTOL, errs
+
+    # (b) full size
+    n_el, nm, ne, chunk = LAMBDA_FULL
+    tr = Tracer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pl = LP.LambdaPipeline(*model(n_el=n_el, nm=nm, ne=ne), device=dev,
+                           mode_chunk=chunk, tracer=tr)
+    path = os.path.join(tempfile.mkdtemp(), "Lambda.npz")
+    with tr.section("write", sync=torch.cuda.synchronize):
+        full, wb = pl.write(path, hwcut, muL, muR)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    os.remove(path)
+    secs = {k: v[1] for k, v in tr.stats.items()}
+    flops = pl.flops()
+    ops = flops["spectral_functions"] \
+        + flops["correlations"] * flops["correlation"]
+    bound_s = ops / PEAK_FP64_TC
+    mask = LP._pair_mask(pl.hw, hwcut)
+
+    def off_mask(x):
+        x = np.asarray(x)
+        return float(np.abs(x[..., ~mask]).max()) if (~mask).any() else 0.0
+
+    def asym(x, sign):
+        x = np.asarray(x)
+        return float(np.abs(x - sign * np.swapaxes(x, -1, -2)).max()
+                     / max(np.abs(x).max(), 1e-300))
+
+    inv = {"eta_sym": asym(wb["eta"], 1), "xim_antisym": asym(wb["xim"], -1),
+           "zeta2_antisym": asym(wb["zeta2"], -1),
+           "lamequ_sym": asym(full["LamEqu"], 1),
+           "lamequ_real": bool(np.isrealobj(full["LamEqu"])),
+           "off_mask": max(off_mask(v) for k, v in
+                           list(wb.items()) + list(full.items())
+                           if k not in ("wl", "TR"))}
+    out = {"phase": 22, "case": "full", "n_el": n_el, "nm": nm, "ne": ne,
+           "mode_chunk": chunk, "s": wall, "sections_s": secs,
+           "flops": ops, "flops_correlation": flops["correlation"],
+           "bound_s": bound_s, "share_of_bound": bound_s / wall,
+           "max_memory_allocated": peak, "invariants": inv,
+           "masked_pairs": int((~mask).sum()), "card": smi}
+    print(json.dumps(out), flush=True)
+    assert inv["eta_sym"] <= 1e-12 and inv["xim_antisym"] <= 1e-12
+    assert inv["zeta2_antisym"] == 0.0 and inv["lamequ_sym"] <= 1e-12
+    assert inv["lamequ_real"] and inv["off_mask"] == 0.0, inv
+    assert all(np.isfinite(np.asarray(v)).all() for v in full.values())
+
+    # kaverage_extract at full size, after a warm-up
+    nk, n, nek = KAVERAGE_FULL
+    kargs = kaverage_model(n, nk, nek)
+    HS.kaverage_extract(*kargs, eta=1e-3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = HS.kaverage_extract(*kargs, eta=1e-3, device=dev)
+    torch.cuda.synchronize()
+    kwall = time.perf_counter() - t0
+    kbound = HS.kaverage_flops(nek, nk, n) / PEAK_FP64_TC
+    print(json.dumps({"phase": 22, "case": "kaverage", "nk": nk, "n": n,
+                      "ne": nek, "s": kwall, "bound_s": kbound,
+                      "share_of_bound": kbound / kwall, "card": smi}),
+          flush=True)
+    assert all(np.isfinite(v).all() for v in res.values())
+    return {"write_s": secs["write"], "spectral_s":
+            secs["spectral_functions"], "kaverage_s": kwall}
+
+
+def phase_current_induced(dev, smi, ntraj=256, nwin=48):
+    """Phase 23: the harmonic flagship with a third, biased electron bath
+    on its 183 centre DOFs (``tools.flagship.biased_flagship_runner``):
+    the matrices from ``LambdaPipeline.wideband`` on the card (rundp's
+    model at 96 orbitals and the 183 DOFs as modes), written with
+    ``WritewbLambda`` and read back; ``RunEnsemble(ntraj)`` with K7 on its
+    bias-coefficient route and K3 on both routes, launches counted;
+    ``calHF``/``calTC`` on its 3 x ntraj kappa files against the run's
+    own mean currents to the files' printed precision; a window of
+    ``nwin`` steps of 2 trajectories on the card against float64 on the
+    CPU; K3's per-frequency route on this bath's factors against its
+    twins, timed."""
+    from sclmd_tpu_torch import units
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import noise_synth as K3
+    from sclmd_tpu_torch.md import thermal_init
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.utils.io import ReadwbLambda
+    from sclmd_tpu_torch.utils.tools import calHF, calTC
+
+    _, part, dyn = F.flagship_junction()
+    centre = F.centre_dofs(part)
+    assert len(centre) == len(dyn) - len(part["fixdofs"]) - len(
+        part["ecatsl"]) - len(part["ecatsr"]) == 183, len(centre)
+    wdir = tempfile.mkdtemp()
+    wbf = os.path.join(wdir, "wbLambda.npz")
+    t0 = time.perf_counter()
+    m = F.write_centre_bath(wbf, dev, len(centre))
+    wb_s = time.perf_counter() - t0
+    back = ReadwbLambda(wbf)
+    assert all(np.array_equal(a, m[k]) for a, k in zip(
+        back[1:], ("eta", "xim", "xip", "zeta1", "zeta2")))
+
+    r = F.biased_flagship_runner(torch.float32, dev, tempfile.mkdtemp(), wbf)
+    system = r._build_system()
+    bb = r.baths[2]
+    assert bb.bias_terms and bb.nevecs.ndim == 3, "not the batch route"
+    r.RunEnsemble(ntraj, nsteps=F.NMD, block=None)      # warm-up
+    torch.cuda.synchronize()
+    r.outdir = tempfile.mkdtemp()
+    K7.reset_count()
+    reset_k3()
+    with GeneratorCount() as gens:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means = r.RunEnsemble(ntraj, nsteps=F.NMD, block=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    assert gens.n == 0, gens.n
+    launches = {"bath_force": K7.launches, **k3_counts(),
+                "noise_synth_batch": K3.launches_batch}
+    ke = r.energy(r.state)
+    chunks = F.chunk_sizes(system, ntraj)
+    nch = len(chunks)
+    assert launches == {"bath_force": 3 * F.NMD * nch,
+                        "noise_synth": 3 * nch, "init_draw": nch,
+                        "noise_transpose": 3 * nch,
+                        "noise_synth_batch": nch}, launches
+    assert means.shape == (ntraj, 3) and np.isfinite(means).all()
+    assert np.isfinite(ke) and 0.0 < ke < KE_BOUND, ke
+
+    # the kappa files read back: calHF's last running mean and calTC's
+    # means against the in-memory currents (nW), each file value printed
+    # with %f (within 5e-7)
+    files = [f for f in os.listdir(r.outdir) if f.startswith("kappa.")]
+    hf = calHF(bathnum=3, workdir=r.outdir)
+    tc = calTC(0.1, bathnum=3, workdir=r.outdir)
+    j = means[1:] * units.CURCOF
+    hf_err = float(np.abs(hf[:, -1] - j.mean(axis=0)).max())
+    kap = (j[:, 0] + j[:, 1] - j[:, 2]) / 4 / (0.1 * r.T)
+    flux = -(j[:, 0] + j[:, 1] - j[:, 2]) / 4
+    tc_err = {"conductance": abs(tc["conductance"][0] - kap.mean()),
+              "flux": abs(tc["flux"][0] - flux.mean())}
+    tol = {"heatflux": 5e-7, "conductance": 3 * 5e-7 / 4 / (0.1 * r.T),
+           "flux": 3 * 5e-7 / 4}
+
+    # card against the CPU: a window of the same system, the same draws
+    rng = np.random.default_rng(23)
+    f0 = F.biased_flagship_runner(torch.float64, "cpu", tempfile.mkdtemp(),
+                                  wbf)
+    rs = [rng.standard_normal((2,) + np.shape(b.nstd)) for b in f0.baths]
+    us = rng.uniform(size=(2, f0.nph))
+    win = []
+    for dtype, device, fr in ((torch.float32, dev, r),
+                              (torch.float64, "cpu", f0)):
+        sysw = fr._build_system()
+        fin, sums, ok = fused_chunk(
+            sysw, bath_factors(fr.baths, device),
+            [torch.as_tensor(x, dtype=dtype, device=device) for x in rs],
+            nwin, 0, None, nwin // 4, states=thermal_init(
+                torch.as_tensor(us, dtype=dtype, device=device), sysw,
+                fr.hw, fr.U, F.T))
+        assert bool(ok)
+        win.append((fin.p, fin.q, sums))
+    win_err = dict(zip(("p", "q", "cur_sum"),
+                       (rel_err(a, b)[0] for a, b in zip(*win))))
+
+    # K3's per-frequency route on this bath's factors (nf 513, nc 183)
+    fac = bath_factors(r.baths, dev)[2]
+    k3_abs = {}
+    for n in sorted(set(chunks)):
+        k3_abs[n] = check_k3_case(23, f"biased_centre_{n}", fac, r.dt,
+                                  r.nmd, n, 3)
+    k3_t = k3_times(fac, r.dt, r.nmd, chunks[0])
+    out = {"phase": 23, "centre_dofs": len(centre), "bias": F.BIAS,
+           "wideband_s": wb_s, "scale": m["scale"],
+           "eta_raw_max": m["eta_raw_max"],
+           "eta_eig": np.linalg.eigvalsh(m["eta"])[[0, -1]].tolist(),
+           "ntraj": ntraj, "nsteps": F.NMD, "chunks": chunks, "s": wall,
+           "traj_steps_per_s": ntraj * F.NMD / wall, "launches": launches,
+           "kinetic_energy_end": ke, "ke_bound": KE_BOUND,
+           "J_mean": means.mean(axis=0).tolist(), "kappa_files": len(files),
+           "calHF_err": hf_err, "calTC_err": tc_err, "tol": tol,
+           "window": {"nsteps": nwin, "ntraj": 2, "rel_err": win_err,
+                      "rtol": RTOL},
+           "k3_batch": {"ms": k3_t["kernel"], "device_ms": k3_t["device"],
+                        "plain_ms": k3_t["plain"], "bound_ms": k3_t["bound"],
+                        "series_ms": k3_t["series"],
+                        "library_composition_ms":
+                            k3_t["library_composition"],
+                        "abs_err": {str(k): v[0] for k, v in k3_abs.items()}},
+           "card": smi}
+    print(json.dumps(out), flush=True)
+    assert len(files) == 3 * ntraj, len(files)
+    assert hf_err <= tol["heatflux"], hf_err
+    assert all(tc_err[k] <= tol[k] for k in tc_err), tc_err
+    assert max(win_err.values()) <= RTOL, win_err
+    return {"launches": launches,
+            "k3_abs": max(v[0] for v in k3_abs.values()),
+            "transpose_abs": max(v[1] for v in k3_abs.values())}
 
 
 if __name__ == "__main__":

@@ -45,6 +45,7 @@ from sclmd_tpu_torch.ops import philox
 launches = 0          # noise_synth (K3) launches, not twin calls
 launches_init = 0     # init_draw (K3b) launches
 launches_transpose = 0   # noise_transpose launches (the series' layout)
+launches_batch = 0    # of ``launches``: those on the per-frequency route
 
 BN = 24               # NS_BN in csrc/noise_synth.cu: columns per tile
 LDX = BN + 4          # NS_LDX: floats per column pair row of a draw tile
@@ -56,8 +57,8 @@ SMEM_LIMIT = 227 * 1024
 
 
 def reset_count():
-    global launches, launches_init, launches_transpose
-    launches = launches_init = launches_transpose = 0
+    global launches, launches_init, launches_transpose, launches_batch
+    launches = launches_init = launches_transpose = launches_batch = 0
 
 
 def padded_width(nc: int) -> int:
@@ -220,7 +221,7 @@ def noise_halfspectrum_cuda(evecs: torch.Tensor, std: torch.Tensor,
     """K3 on the card. ``draw_only``: the scaled draw std z (hi-lo, h, nc)
     float32 instead of the product (the check of the kernel's normals);
     ``plan`` overrides ``launch_plan`` (tests of other launch shapes)."""
-    global launches
+    global launches, launches_batch
     dev = std.device
     if dev.type != "cuda" or evecs.device != dev:
         raise ValueError("noise_synth: evecs and std must be on the same "
@@ -265,6 +266,7 @@ def noise_halfspectrum_cuda(evecs: torch.Tensor, std: torch.Tensor,
     rc = lib.noise_synth_f32(ctypes.byref(a), build.current_stream(dev))
     build.check(rc, "noise_synth")
     launches += 1
+    launches_batch += int(batch)
     return out
 
 

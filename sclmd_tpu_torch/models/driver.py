@@ -41,12 +41,18 @@ class Consts:
     def on(self, x: torch.Tensor) -> dict:
         key = (x.device, x.dtype)
         if key not in self._cache:
-            self._cache[key] = {
-                k: torch.as_tensor(
+            # made outside any torch.func transform the call runs under
+            # (a Hessian): tensors made inside one carry its level, and
+            # cached they break the next transform's call
+            with torch._C._DisableFuncTorch():
+                self._cache[key] = self._tensors(x)
+        return self._cache[key]
+
+    def _tensors(self, x: torch.Tensor) -> dict:
+        return {k: torch.as_tensor(
                     v, device=x.device,
                     dtype=x.dtype if v.dtype.kind == "f" else None)
                 for k, v in self._np.items()}
-        return self._cache[key]
 
 
 class TorchDriver:

@@ -9,9 +9,12 @@ conductance and pinned by golden-value tests, so none is "fixed":
   toward the neighbour on the side of x, clamping at both grid ends.
 
 Host-side setup helpers (``bose``, ``fermi``, ``equ_spectrum``,
-``nonequ_spectrum``, ``flinterp_np``, ``hermitianize``) are numpy
-float64; the runtime helpers (``fourier_w2t``/``fourier_t2w``,
-``powerspecp``/``powerspecq``, ``rpadleft``) take torch tensors;
+``nonequ_spectrum``, ``flinterp_np``, ``hermitianize``, ``nearest``) are
+numpy float64 (``bose``/``fermi`` are the JAX package's ``xp=np``
+forms, which the Lambda pipeline calls); the runtime helpers
+(``fourier_w2t``/``fourier_t2w``, ``myfft``, ``coth``/``xcoth``,
+``flinterp``, ``mdot``, ``dagger``, ``powerspecp``/``powerspecq``,
+``rpadleft``) take torch tensors (numpy arrays are converted);
 ``chkShape``/``symmetrize``/``antisymmetrize`` take either.
 """
 
@@ -33,6 +36,41 @@ def fourier_w2t(a: torch.Tensor, dt: float, dim: int = 0) -> torch.Tensor:
     """f(t) = int f(w) e^{-iwt} dw / 2pi = ``fft(a) / (N dt)``."""
     n = a.shape[dim]
     return torch.fft.fft(a, dim=dim) / (n * dt)
+
+
+class myfft:
+    """Object-style wrapper of the Fourier pair with the reference's
+    ``myfft`` API (length checked against ``n``)."""
+
+    def __init__(self, dt: float, n: int):
+        self.dt = dt
+        self.N = n
+        self.dw = 2.0 * np.pi / dt / n
+
+    def _checked(self, a, who):
+        a = torch.as_tensor(a)
+        if a.shape[0] != self.N:
+            raise ValueError(f"myfft.{who}: array length error")
+        return a
+
+    def Fourier1D(self, a):
+        return fourier_t2w(self._checked(a, "Fourier1D"), self.dt, dim=0)
+
+    def iFourier1D(self, a):
+        return fourier_w2t(self._checked(a, "iFourier1D"), self.dt, dim=0)
+
+
+def coth(x):
+    x = torch.as_tensor(x)
+    return torch.cosh(x) / torch.sinh(x)
+
+
+def xcoth(x):
+    """x coth(x) with the x = 0 limit equal to 1."""
+    x = torch.as_tensor(x)
+    safe = torch.where(x == 0.0, torch.ones_like(x), x)
+    return torch.where(x == 0.0, torch.ones_like(x),
+                       safe * torch.cosh(safe) / torch.sinh(safe))
 
 
 def bose(w, T):
@@ -109,6 +147,50 @@ def flinterp_np(x, xs, ys):
     edge = (i == 0) | (i == n - 1)
     val[edge] = ys[i[edge]]
     return val
+
+
+def flinterp(x, xs, ys):
+    """Torch form of ``flinterp_np`` (the JAX package's device form):
+    ``x`` a scalar or a vector, ``ys`` (n, ...) with trailing matrix
+    dimensions; a scalar ``x`` gives one row."""
+    xs = torch.as_tensor(xs)
+    ys = torch.as_tensor(ys, device=xs.device)
+    xv = torch.as_tensor(x, dtype=xs.dtype, device=xs.device)
+    scalar = xv.ndim == 0
+    xv = xv.reshape(-1)
+    n = xs.shape[0]
+    i = torch.argmin((xs[None, :] - xv[:, None]).abs(), dim=1)
+    dd = xv - xs[i]
+    j = torch.where(dd < 0, i - 1, i + 1).clamp(0, n - 1)
+    denom = xs[i] - xs[j]
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    extra = (Ellipsis,) + (None,) * (ys.ndim - 1)
+    val = ys[i] + (dd / denom)[extra] * (ys[i] - ys[j])
+    edge = ((i == 0) | (i == n - 1))[extra]
+    out = torch.where(edge, ys[i], val)
+    return out[0] if scalar else out
+
+
+def nearest(b, bs):
+    """Index of the element of ``bs`` closest to ``b``."""
+    return int(np.argmin(np.abs(np.asarray(bs) - b)))
+
+
+def mdot(*args):
+    """The matrix product of the arguments, left to right."""
+    out = torch.as_tensor(args[0])
+    for m in args[1:]:
+        out = out @ torch.as_tensor(m)
+    return out
+
+
+# the reference's alias
+mm = mdot
+
+
+def dagger(a):
+    """The conjugate transpose of a matrix."""
+    return torch.as_tensor(a).conj().T
 
 
 def hermitianize(a):

@@ -11,6 +11,12 @@ whose force is ``-dyn q`` from ``dyn_ev2``; and the many-body one
 C/H driver's (``CHDriver`` on the npz geometry, which the bench reaches
 by relaxing ``structure.data``; kernel K5 on the card), with ``dyn_ev2``
 kept for the thermal start.
+
+The current-induced form (``biased_flagship_runner``) adds
+examples/current_induced/rundp.py's biased electron bath on the centre:
+the 183 DOFs neither fixed nor in a lead, at T 300 K and bias 0.5 eV,
+with the wideband matrices ``write_centre_bath`` writes, read back from
+the wbLambda file.
 """
 
 import os
@@ -59,6 +65,82 @@ def flagship_runner(dtype, device, outdir, nmd: int = NMD, seed: int = 11,
         r.AddBath(B.ebath(cats, tt, r.dt, r.nmd, wmax=1.0, nw=500,
                           efric=eta, dtype=dtype, device=device))
     r.AddConstr([part["fixdofs"]])
+    return r
+
+
+BIAS, BIAS_T = 0.5, 300.0
+LAMBDA_NE, LAMBDA_EMAX, LAMBDA_NEL = 2048, 4.0, 96
+
+
+def centre_dofs(part) -> list:
+    """The DOFs of the device atoms of ``partition_by_axis``: neither
+    fixed nor in a lead (183 on the flagship: 603 - 120 - 2 x 150)."""
+    return sorted(int(d) for i in part["device"]
+                  for d in range(3 * i, 3 * i + 3))
+
+
+def centre_bath_raw(device, nm: int, n_el: int = LAMBDA_NEL,
+                    ne: int = LAMBDA_NE) -> dict:
+    """The centre bath's wideband matrices as the pipeline gives them:
+    ``LambdaPipeline.wideband`` (rundp's hwcut, mu0 0) of rundp's model
+    electronic structure with ``n_el`` orbitals and ``nm`` modes, the
+    DOFs themselves, on ``fft_order_grid(4.0, ne)``, run on ``device``."""
+    from sclmd_tpu_torch.examples.current_induced.rundp import HWCUT, model
+    from sclmd_tpu_torch.postprocess.lambda_pipeline import LambdaPipeline
+
+    pl = LambdaPipeline(*model(n_el=n_el, nm=nm, ne=ne, emax=LAMBDA_EMAX),
+                        device=device)
+    return pl.wideband(hwcut=HWCUT, mu0=0.0)
+
+
+def write_centre_bath(path, device, nm: int, n_el: int = LAMBDA_NEL,
+                      ne: int = LAMBDA_NE) -> dict:
+    """``centre_bath_raw`` scaled and shifted, written as a wbLambda
+    bundle at ``path`` (``WritewbLambda``) and returned.
+
+    rundp's coupling amplitude was set for 10 orbitals and 12 modes; at
+    96 and 183 the friction's largest eigenvalue is ~550 eV (eta dt ~ 200
+    at the flagship's step, where the explicit step needs well under 2),
+    and with zeta1 at bias 0.5 the flagship gains a growing mode
+    (``tools.bias_stability``). So all five matrices are scaled by one
+    factor (the coupling by its square root) that puts eta's largest
+    eigenvalue at the leads' friction 1/(100 fs); then eta is shifted as
+    rundp shifts it. Returns the five matrices (``eta`` shifted),
+    ``scale`` and ``eta_raw_max``."""
+    from sclmd_tpu_torch.examples.current_induced.rundp import (
+        shifted_friction)
+    from sclmd_tpu_torch.utils.io import WritewbLambda
+
+    wb = centre_bath_raw(device, nm, n_el=n_el, ne=ne)
+    raw = float(np.abs(np.linalg.eigvalsh(wb["eta"])).max())
+    scale = (1.0 / DAMP) / raw
+    out = {k: scale * wb[k] for k in ("eta", "xim", "xip", "zeta1", "zeta2")}
+    out["eta"] = shifted_friction(out["eta"])
+    WritewbLambda(path, out["eta"], out["xim"], out["xip"], out["zeta1"],
+                  out["zeta2"])
+    out.update(scale=scale, eta_raw_max=raw)
+    return out
+
+
+def biased_flagship_runner(dtype, device, outdir, wb_file, nmd: int = NMD,
+                           seed: int = 11,
+                           temps=(T * (1 + DELTA / 2), T * (1 - DELTA / 2))):
+    """``flagship_runner`` with a third electron bath on the centre DOFs:
+    T 300 K, bias 0.5, its efric, exim, exip, zeta1 and zeta2 read from
+    the wbLambda file ``wb_file`` (``ReadwbLambda``). The bias makes its
+    spectrum non-proportional, so its noise factors are per frequency
+    (K3's per-frequency route) and K7 applies the wind, renormalisation
+    and Berry terms."""
+    from sclmd_tpu_torch import baths as B
+    from sclmd_tpu_torch.utils.io import ReadwbLambda
+
+    r = flagship_runner(dtype, device, outdir, nmd=nmd, seed=seed,
+                        temps=temps)
+    _, part, _ = flagship_junction()
+    _, eta, xim, xip, z1, z2 = ReadwbLambda(wb_file)
+    r.AddBath(B.ebath(centre_dofs(part), BIAS_T, r.dt, r.nmd, wmax=1.0,
+                      nw=500, bias=BIAS, efric=eta, exim=xim, exip=xip,
+                      zeta1=z1, zeta2=z2, dtype=dtype, device=device))
     return r
 
 

@@ -5,6 +5,8 @@ nothing is imported."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -30,10 +32,47 @@ def forbidden(name):
     return top in FORBIDDEN
 
 
+# the post-processing slice: its modules and the examples package
+SLICE = ("sclmd_tpu_torch.ops.functions", "sclmd_tpu_torch.utils.io",
+         "sclmd_tpu_torch.utils.tools", "sclmd_tpu_torch.utils.config",
+         "sclmd_tpu_torch.utils.profiling",
+         "sclmd_tpu_torch.postprocess.lambda_pipeline",
+         "sclmd_tpu_torch.postprocess.hssigma",
+         "sclmd_tpu_torch.examples",
+         "sclmd_tpu_torch.examples.current_induced.rundp",
+         "sclmd_tpu_torch.examples.current_induced.runnegf",
+         "sclmd_tpu_torch.examples.runmd", "sclmd_tpu_torch.examples.runnegf",
+         "sclmd_tpu_torch.examples.runsig",
+         "sclmd_tpu_torch.examples.compareforce",
+         "sclmd_tpu_torch.examples.runeam")
+
+
 def test_audit_sees_the_port():
     assert "sclmd_tpu_torch/negf.py" in FILES
     assert "sclmd_tpu_torch/selfenergy.py" in FILES
-    assert len(FILES) > 40
+    for mod in SLICE:
+        path = mod.replace(".", "/")
+        assert path + ".py" in FILES or path + "/__init__.py" in FILES, mod
+    assert len(FILES) > 60
+
+
+def test_slice_imports_without_jax():
+    """Importing every module of the slice in a fresh interpreter where
+    ``jax`` cannot be imported pulls in neither JAX nor the JAX
+    package."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'sclmd_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {SLICE!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'sclmd_tpu') and "
+            "sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 @pytest.mark.parametrize("name,bad", [

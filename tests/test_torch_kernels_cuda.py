@@ -1321,3 +1321,72 @@ def test_negf_no_singular_error_at_zero(cuda):
                                      np.array([[-0.1]]), [0.0, 0.1],
                                      eta=0.0, device=cuda)
     assert se.shape == (2, 1, 1)
+
+
+def _dict_within(got, want, tol):
+    for k, w in want.items():
+        g = got[k]
+        g = g.cpu().numpy() if torch.is_tensor(g) else np.asarray(g)
+        w = w.cpu().numpy() if torch.is_tensor(w) else np.asarray(w)
+        assert np.abs(g - w).max() <= tol * np.abs(w).max(), k
+
+
+def test_lambda_pipeline_card_against_cpu(cuda):
+    """The Lambda pipeline in complex128 on the card against the CPU at
+    rundp's model (12 orbitals, 6 modes, 256 energies): the spectral
+    functions, wideband and every array of full_lambda within 1e-9 of
+    their largest values, the same at two mode chunks; kaverage_extract
+    likewise at 3 k points."""
+    from sclmd_tpu_torch.examples.current_induced.rundp import model
+    from sclmd_tpu_torch.postprocess import hssigma as HS
+    from sclmd_tpu_torch.postprocess import lambda_pipeline as LP
+    args = model(n_el=12, nm=6, ne=256)
+    ref = LP.LambdaPipeline(*args, device="cpu")
+    want = (ref.wideband(0.05), ref.full_lambda(0.05, 0.25, -0.25))
+    for chunk in (2, 6):
+        pl = LP.LambdaPipeline(*args, device=cuda, mode_chunk=chunk)
+        assert pl.sp["A"].device.type == "cuda"
+        _dict_within(pl.sp, ref.sp, 1e-9)
+        _dict_within(pl.wideband(0.05), want[0], 1e-9)
+        _dict_within(pl.full_lambda(0.05, 0.25, -0.25), want[1], 1e-9)
+    H, S, E, SigL, SigR, _, _ = args
+    Hk = np.stack([H, H + 0.05, H.T])
+    fk = np.array([1.0, 0.9, 1.1])[None, :, None, None]
+    kargs = (Hk, np.stack([S] * 3), SigL[:, None] * fk, SigR[:, None] * fk,
+             E, np.full(3, 1 / 3))
+    _dict_within(HS.kaverage_extract(*kargs, eta=1e-3, device=cuda),
+                 HS.kaverage_extract(*kargs, eta=1e-3, device="cpu"), 1e-9)
+
+
+def test_biased_flagship_window_card_against_cpu(cuda, tmp_path):
+    """The flagship under the biased centre bath (K7's wind/Berry route):
+    48 plain steps of two trajectories on the card against float64 on
+    the CPU, the same injected draws, within 1e-4 of the largest."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.parallel.ensemble import bath_factors, fused_chunk
+    from sclmd_tpu_torch.tools import flagship as F
+    _, part, _ = F.flagship_junction()
+    wbf = str(tmp_path / "wb.npz")
+    F.write_centre_bath(wbf, cuda, len(F.centre_dofs(part)), ne=512)
+    rng = np.random.default_rng(5)
+    out = []
+    for dtype, device in ((torch.float32, cuda), (torch.float64, "cpu")):
+        r = F.biased_flagship_runner(dtype, device, str(tmp_path), wbf)
+        if not out:
+            rs = [rng.standard_normal((2,) + np.shape(b.nstd))
+                  for b in r.baths]
+            us = rng.uniform(size=(2, r.nph))
+        system = r._build_system()
+        before = K7.launches
+        fin, sums, ok = fused_chunk(
+            system, bath_factors(r.baths, device),
+            [torch.as_tensor(x, dtype=dtype, device=device) for x in rs],
+            48, 0, None, 12, states=TMD.thermal_init(
+                torch.as_tensor(us, dtype=dtype, device=device), system,
+                r.hw, r.U, F.T))
+        if device != "cpu":
+            assert K7.launches - before == 3 * 48
+        assert bool(ok)
+        out.append((fin.p, fin.q, sums))
+    for a, b in zip(*out):
+        assert _rel(a, b) < 1e-4

@@ -189,3 +189,23 @@ def test_card_tools_refuse_the_cpu(monkeypatch, tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         mod.main([])
+
+
+def test_bias_stability_growth_rate():
+    """``tools.bias_stability.growth_rate`` on a 4-atom chain split as the
+    flagship is (fixed ends, one lead atom a side, one centre atom): a
+    stable chain decays, a negative stiffness in the centre grows, and a
+    centre friction damps faster."""
+    from sclmd_tpu_torch.models.harmonic import chain_dynmat
+    from sclmd_tpu_torch.tools.bias_stability import growth_rate
+    dyn = np.asarray(chain_dynmat(15, 0.04))
+    part = {"fixdofs": [0, 1, 2, 12, 13, 14], "ecatsl": [3, 4, 5],
+            "ecatsr": [9, 10, 11], "device": np.array([2])}
+    z = np.zeros((3, 3))
+    bare = growth_rate(dyn, part)
+    assert bare < 0.0
+    # the force bias (xim - zeta1) q: a negative zeta1 softens
+    soft = growth_rate(dyn, part, (z, z, -np.eye(3) * 0.2, z), bias=1.0)
+    assert soft > 0.0
+    damped = growth_rate(dyn, part, (np.eye(3) * 0.05, z, z, z))
+    assert damped < bare
