@@ -26,6 +26,7 @@ from sclmd_tpu_torch.ops import noise as NZ
 from sclmd_tpu_torch.ops.functions import (antisymmetrize, chkShape,
                                            equ_spectrum, flinterp_np,
                                            matvec, symmetrize)
+from sclmd_tpu_torch.utils import profiling
 
 
 def _contig_start(cats_np: np.ndarray):
@@ -110,13 +111,14 @@ class EBath:
     def prepare_noise(self) -> "EBath":
         """Factorise the noise PSD on the host in float64."""
         wl = 2.0 * np.pi / self.dt / self.nmd * np.arange(self.nmd // 2 + 1)
-        f64 = {k: getattr(self, k).double().cpu().numpy()
-               for k in ("efric", "exim", "exip")}
-        psd = NZ.electron_psd(wl, f64["efric"], f64["exim"], f64["exip"],
-                              float(self.bias), float(self.T), self.wmax,
-                              self.classical, self.zpmotion,
-                              delta=self.dt * self.nmd)
-        evec, std = NZ.noise_factors(psd, dtype=self.efric.dtype)
+        with profiling.span("setup/bath"):
+            f64 = {k: getattr(self, k).double().cpu().numpy()
+                   for k in ("efric", "exim", "exip")}
+            psd = NZ.electron_psd(wl, f64["efric"], f64["exim"],
+                                  f64["exip"], float(self.bias),
+                                  float(self.T), self.wmax, self.classical,
+                                  self.zpmotion, delta=self.dt * self.nmd)
+            evec, std = NZ.noise_factors(psd, dtype=self.efric.dtype)
         return self.replace(nevecs=evec, nstd=std)
 
     def SetT(self, T) -> "EBath":
@@ -192,23 +194,24 @@ def ebath(cats, T, dt, nmd, wmax=None, nw=None, bias=0.0,
     nevecs = nstd = None
     if factorize:
         wlh = 2.0 * np.pi / dt / nmd * np.arange(int(nmd) // 2 + 1)
-        if not bias_active and nc >= 8:
-            aw = float(dt) * int(nmd) * equ_spectrum(
-                wlh, wmax, float(T), classical, zpmotion)
-            lam0, evec0 = np.linalg.eigh(efric_np)
-            std = np.sqrt(np.clip(aw, 0.0, None)[:, None]
-                          * np.clip(lam0, 0.0, None)[None, :])
-            f64_out = NZ._is_f64(dtype)
-            nevecs = np.broadcast_to(
-                evec0.astype(np.complex128 if f64_out else np.complex64),
-                (len(wlh), nc, nc))
-            nstd = std.astype(np.float64 if f64_out else np.float32)
-        else:
-            psd = NZ.electron_psd(wlh, efric_np, exim_np, exip_np,
-                                  float(bias), float(T), wmax,
-                                  classical, zpmotion,
-                                  delta=float(dt) * int(nmd))
-            nevecs, nstd = NZ.noise_factors(psd, dtype=dtype)
+        with profiling.span("setup/bath"):
+            if not bias_active and nc >= 8:
+                aw = float(dt) * int(nmd) * equ_spectrum(
+                    wlh, wmax, float(T), classical, zpmotion)
+                lam0, evec0 = np.linalg.eigh(efric_np)
+                std = np.sqrt(np.clip(aw, 0.0, None)[:, None]
+                              * np.clip(lam0, 0.0, None)[None, :])
+                f64_out = NZ._is_f64(dtype)
+                nevecs = np.broadcast_to(
+                    evec0.astype(np.complex128 if f64_out else np.complex64),
+                    (len(wlh), nc, nc))
+                nstd = std.astype(np.float64 if f64_out else np.float32)
+            else:
+                psd = NZ.electron_psd(wlh, efric_np, exim_np, exip_np,
+                                      float(bias), float(T), wmax,
+                                      classical, zpmotion,
+                                      delta=float(dt) * int(nmd))
+                nevecs, nstd = NZ.noise_factors(psd, dtype=dtype)
 
     def dev(m):
         return torch.as_tensor(m, dtype=dtype, device=device)
@@ -464,10 +467,10 @@ def phbath(T, cats, debye, nw, dt, nmd, ml=None, mcof=2.0,
         hlen = int(nmd) // 2
         dw = 2.0 * np.pi / dt / nmd
         wlh = dw * np.arange(hlen + 1)
-        nevecs, nstd = NZ.phonon_factors(wlh, gamma_np, gwl_np, float(T),
-                                         wmax, classical, zpmotion,
-                                         delta=float(dt) * int(nmd),
-                                         dtype=dtype)
+        with profiling.span("setup/bath"):
+            nevecs, nstd = NZ.phonon_factors(
+                wlh, gamma_np, gwl_np, float(T), wmax, classical, zpmotion,
+                delta=float(dt) * int(nmd), dtype=dtype)
 
     return PhBath(
         cids=cats_np, cs=_contig_start(cats_np), T=float(T),

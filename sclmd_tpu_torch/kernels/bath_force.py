@@ -31,6 +31,7 @@ import torch
 
 from sclmd_tpu_torch.baths import EBath, PhBath
 from sclmd_tpu_torch.kernels import build
+from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # bath_force kernel launches (not twin calls)
 # of those, launches of a tile of one or two trajectories whose system is
@@ -44,6 +45,9 @@ PRED, CORR, LAST = 0, 1, 2
 def reset_count():
     global launches, launches_wide
     launches = launches_wide = 0
+
+
+profiling.register("launches.K7", __name__, "launches")
 
 
 SRC_H, SRC_Q = 1, 2    # what a packed operand's later matrices act on

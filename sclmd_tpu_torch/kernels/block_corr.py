@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from sclmd_tpu_torch.kernels import build
+from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # block_corr_freq kernel launches (not twin calls)
 
@@ -25,6 +26,9 @@ launches = 0          # block_corr_freq kernel launches (not twin calls)
 def reset_count():
     global launches
     launches = 0
+
+
+profiling.register("launches.K2", __name__, "launches")
 
 
 def block_corr_freq_plain(khat: torch.Tensor,

@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 import time
 
+from sclmd_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -91,6 +93,7 @@ def build() -> str:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
         build_seconds = time.perf_counter() - t0
+        profiling.count("library_builds")
         with open(out[:-3] + ".log", "w") as f:
             f.write(log)
         os.replace(tmp, out)      # atomic: a concurrent loader sees all or nothing
@@ -102,7 +105,8 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
+    with profiling.span("setup/library"):
+        lib = ctypes.CDLL(build())
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.block_corr_freq_f32.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.block_corr_freq_f32.restype = ci

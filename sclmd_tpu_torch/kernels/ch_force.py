@@ -34,6 +34,7 @@ import torch
 from sclmd_tpu_torch.kernels import build
 from sclmd_tpu_torch.kernels.slots import (KernelForce, _cell, _mic,
                                            row_partners)
+from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # kernel launches through a C/H pack (K5)
 launches_tersoff = 0  # kernel launches through a Tersoff pack (K8)
@@ -59,6 +60,10 @@ OPS = dict(entry=30, pair=60, triple=110, bond=30, wag=90, gather=6)
 def reset_count():
     global launches, launches_tersoff
     launches = launches_tersoff = 0
+
+
+profiling.register("launches.K5", __name__, "launches")
+profiling.register("launches.K8", __name__, "launches_tersoff")
 
 
 def _up(n: int, k: int) -> int:

@@ -24,6 +24,7 @@ import torch
 
 from sclmd_tpu_torch.baths import PhBath
 from sclmd_tpu_torch.kernels import build
+from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # conv_tails kernel launches (not twin calls)
 
@@ -45,6 +46,9 @@ KEEP_L2_SHARE = 0.7
 def reset_count():
     global launches
     launches = 0
+
+
+profiling.register("launches.K6", __name__, "launches")
 
 
 def tail_baths(baths) -> list:

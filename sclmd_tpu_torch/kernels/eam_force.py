@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch.kernels import slots
+from sclmd_tpu_torch.utils import profiling
 
 launches = 0   # evaluations through the kernel (three launches each)
 
@@ -35,6 +36,9 @@ OPS_RHO, OPS_GRAD, OPS_EMBED = 25, 25, 20
 def reset_count():
     global launches
     launches = 0
+
+
+profiling.register("launches.K10", __name__, "launches")
 
 
 def _int_power(e) -> int:

@@ -42,6 +42,7 @@ import torch
 
 from sclmd_tpu_torch.kernels import build
 from sclmd_tpu_torch.ops.functions import matvec
+from sclmd_tpu_torch.utils import profiling
 
 launches_near = 0     # gle_near kernel launches (not twin calls)
 launches_far = 0      # gle_far kernel launches (not twin calls)
@@ -55,6 +56,10 @@ SUB = 12              # steps per sub-block (tools/k1_sweep.py)
 def reset_count():
     global launches_near, launches_far
     launches_near = launches_far = 0
+
+
+profiling.register("launches.K1_near", __name__, "launches_near")
+profiling.register("launches.K1_far", __name__, "launches_far")
 
 
 class BathOperands(NamedTuple):

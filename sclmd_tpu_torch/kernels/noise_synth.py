@@ -41,6 +41,7 @@ import torch
 
 from sclmd_tpu_torch.kernels import build
 from sclmd_tpu_torch.ops import philox
+from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # noise_synth (K3) launches, not twin calls
 launches_init = 0     # init_draw (K3b) launches
@@ -59,6 +60,11 @@ SMEM_LIMIT = 227 * 1024
 def reset_count():
     global launches, launches_init, launches_transpose, launches_batch
     launches = launches_init = launches_transpose = launches_batch = 0
+
+
+profiling.register("launches.K3", __name__, "launches")
+profiling.register("launches.K3b", __name__, "launches_init")
+profiling.register("launches.K3_transpose", __name__, "launches_transpose")
 
 
 def padded_width(nc: int) -> int:

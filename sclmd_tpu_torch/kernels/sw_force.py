@@ -19,6 +19,7 @@ import ctypes
 import numpy as np
 
 from sclmd_tpu_torch.kernels import slots
+from sclmd_tpu_torch.utils import profiling
 
 launches = 0   # evaluations through the kernel (three launches each)
 
@@ -30,6 +31,9 @@ OPS_PAIR, OPS_TRIPLE = 45, 30
 def reset_count():
     global launches
     launches = 0
+
+
+profiling.register("launches.K9", __name__, "launches")
 
 
 def _int_power(e) -> int:

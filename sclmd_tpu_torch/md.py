@@ -64,6 +64,7 @@ from sclmd_tpu_torch.kernels.conv_tails import conv_tails_plan, tail_baths
 from sclmd_tpu_torch.kernels.gle_block import (BathOperands, gle_block,
                                                tap_major)
 from sclmd_tpu_torch.ops.functions import bose, matvec, powerspecp
+from sclmd_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -224,12 +225,13 @@ def set_dyn(dyn, dtype=torch.float64, device=None):
     leaves negative leakage that grows over long runs); cast to
     ``dtype`` at the end, on ``device`` (default: the CUDA card)."""
     device = resolve_device(device)
-    dyn = np.asarray(dyn, np.float64)
-    dyn = (dyn + dyn.T) / 2
-    av, au = np.linalg.eigh(dyn)
-    av = np.clip(av, 0.0, None)
-    hw = np.sqrt(av)
-    dyn = (au * av[None, :]) @ au.T
+    with profiling.span("setup/thermal_start"):
+        dyn = np.asarray(dyn, np.float64)
+        dyn = (dyn + dyn.T) / 2
+        av, au = np.linalg.eigh(dyn)
+        av = np.clip(av, 0.0, None)
+        hw = np.sqrt(av)
+        dyn = (au * av[None, :]) @ au.T
     return tuple(torch.as_tensor(x, dtype=dtype, device=device)
                  for x in (dyn, hw, au))
 
@@ -549,20 +551,40 @@ def blocked_supports(system: GLESystem) -> bool:
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
+    profiling.count("syncs")
     return x.detach().cpu().numpy()
 
 
+def _write_texts(files):
+    """Write small text files, each ``(path, text)`` of ``files``, through
+    raw ``os.open``/``os.write``: the runner writes one kappa file per
+    trajectory and bath, and buffered ``open()`` costs several times the
+    two syscalls a file (the JAX package measured 2-3 ms against 0.13
+    ms; ``sclmd_tpu/md.py:396``). The bytes are those ``open(path,
+    "w").write(text)`` would write. Counted once for the batch."""
+    n = nbytes = 0
+    for path, text in files:
+        data = text.encode()
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        try:
+            os.write(fd, data)
+        finally:
+            os.close(fd)
+        n += 1
+        nbytes += len(data)
+    profiling.count("files", n)
+    profiling.count("bytes_written", nbytes)
+
+
 def _write_text(path: str, text: str):
-    """Write a small text file through raw ``os.open``/``os.write``: the
-    runner writes one kappa file per trajectory and bath, and buffered
-    ``open()`` costs several times the two syscalls a file (the JAX
-    package measured 2-3 ms against 0.13 ms; ``sclmd_tpu/md.py:396``).
-    The bytes are those ``open(path, "w").write(text)`` would write."""
-    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
-    try:
-        os.write(fd, text.encode())
-    finally:
-        os.close(fd)
+    _write_texts(((path, text),))
+
+
+def _save_npz(path: str, data: dict):
+    """``np.savez`` of a checkpoint, counted as a file and its bytes."""
+    np.savez(path, **data)
+    profiling.count("files")
+    profiling.count("bytes_written", os.path.getsize(path))
 
 
 class md:
@@ -839,92 +861,99 @@ class md:
 
     def dump(self, state: MDState, ipie, j, outputs=None):
         """Write the MD{j} checkpoint of a one-trajectory state."""
-        data = {
-            "p": _host(state.p[0]), "q": _host(state.q[0]),
-            "t": np.asarray([int(state.t[0])]),
-            "ipie": np.asarray([ipie]),
-            "nmd": np.asarray([self.nmd]), "dt": np.asarray([self.dt]),
-            "phis": _host(state.phis[0]), "qhis": _host(state.qhis[0]),
-        }
-        for i, b in enumerate(self.baths):
-            if b.noise is not None:
-                data[f"noise{i}"] = _host(b.noise[0])
-        if outputs is not None:
-            for k, v in outputs.items():
-                if v is not None:
-                    data[k] = np.asarray(v)
-        if self.power is not None:
-            data["power"] = np.asarray(self.power)
-            if self.poweratomlist is not None:
-                data["poweratomlist"] = np.asarray(self.poweratomlist)
-        np.savez(self._ckfile(j), **data)
+        with profiling.span("run/checkpoint"):
+            data = {
+                "p": _host(state.p[0]), "q": _host(state.q[0]),
+                "t": np.asarray([int(state.t[0])]),
+                "ipie": np.asarray([ipie]),
+                "nmd": np.asarray([self.nmd]), "dt": np.asarray([self.dt]),
+                "phis": _host(state.phis[0]), "qhis": _host(state.qhis[0]),
+            }
+            for i, b in enumerate(self.baths):
+                if b.noise is not None:
+                    data[f"noise{i}"] = _host(b.noise[0])
+            if outputs is not None:
+                for k, v in outputs.items():
+                    if v is not None:
+                        data[k] = np.asarray(v)
+            if self.power is not None:
+                data["power"] = np.asarray(self.power)
+                if self.poweratomlist is not None:
+                    data["poweratomlist"] = np.asarray(self.poweratomlist)
+            _save_npz(self._ckfile(j), data)
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
                                device=self.device)[None]
 
     # ---- main loop ----
+    @profiling.call("Run", "run")
     def Run(self):
         """Runs ``nstart..nstop-1`` of ``nmd`` steps each, in ``npie``
         segments with an ``MD{j}.npz`` checkpoint after every segment: an
         unfinished run resumes from its checkpoint (state and noise), a
-        finished one is skipped, and a new run chains from MD{j-1}."""
-        system = self._build_system()
-        seed = self._next_seed()
-        state = self.initialise(system, seed)
-        self.info()
+        finished one is skipped, and a new run chains from MD{j-1}. One
+        report of ``utils.profiling`` a call (spans ``run/...``)."""
+        with profiling.span("run/start"):
+            system = self._build_system()
+            seed = self._next_seed()
+            state = self.initialise(system, seed)
+            self.info()
 
         seg = self.nmd // self.npie
         for j in range(self.nstart, self.nstop):
             fn, fnm = self._ckfile(j), self._ckfile(j - 1)
             collected = {}
             ipie0 = -1
-            if os.path.isfile(fn):
-                ck = np.load(fn)
-                self._check_checkpoint(ck, fn)
-                ipie = int(ck["ipie"][0])
-                if ipie + 1 < self.npie:
-                    # resume an unfinished run
-                    state = MDState(
-                        t=torch.as_tensor([int(ck["t"][0])],
-                                          device=self.device),
-                        p=self._tensor(ck["p"]), q=self._tensor(ck["q"]),
-                        phis=self._tensor(ck["phis"]),
-                        qhis=self._tensor(ck["qhis"]))
-                    missing = [i for i in range(len(self.baths))
-                               if f"noise{i}" not in ck]
-                    if missing:
-                        self._draw_noise(seed, j)
-                    for i in range(len(self.baths)):
-                        if f"noise{i}" in ck:
-                            self.baths[i] = self.baths[i].replace(
-                                noise=self._tensor(ck[f"noise{i}"]))
-                    for k in ("etot", "cur", "ps", "qs", "fbaths", "f"):
-                        if k in ck:
-                            collected[k] = [np.asarray(ck[k])]
-                    ipie0 = ipie
-                    system = self._build_system()
+            with profiling.span("run/start"):
+                if os.path.isfile(fn):
+                    ck = np.load(fn)
+                    self._check_checkpoint(ck, fn)
+                    ipie = int(ck["ipie"][0])
+                    if ipie + 1 < self.npie:
+                        # resume an unfinished run
+                        state = MDState(
+                            t=torch.as_tensor([int(ck["t"][0])],
+                                              device=self.device),
+                            p=self._tensor(ck["p"]), q=self._tensor(ck["q"]),
+                            phis=self._tensor(ck["phis"]),
+                            qhis=self._tensor(ck["qhis"]))
+                        missing = [i for i in range(len(self.baths))
+                                   if f"noise{i}" not in ck]
+                        if missing:
+                            self._draw_noise(seed, j)
+                        for i in range(len(self.baths)):
+                            if f"noise{i}" in ck:
+                                self.baths[i] = self.baths[i].replace(
+                                    noise=self._tensor(ck[f"noise{i}"]))
+                        for k in ("etot", "cur", "ps", "qs", "fbaths", "f"):
+                            if k in ck:
+                                collected[k] = [np.asarray(ck[k])]
+                        ipie0 = ipie
+                        system = self._build_system()
+                    else:
+                        # finished run: skip
+                        if "power" in ck:
+                            self.power = np.asarray(ck["power"])
+                        self.t = int(ck["t"][0])
+                        continue
                 else:
-                    # finished run: skip
-                    if "power" in ck:
-                        self.power = np.asarray(ck["power"])
-                    self.t = int(ck["t"][0])
-                    continue
-            else:
-                if os.path.isfile(fnm):
-                    # chain from the previous run with its warm history
-                    ck = np.load(fnm)
-                    state = state.replace(
-                        t=torch.as_tensor([int(ck["t"][0])],
-                                          device=self.device),
-                        p=self._tensor(ck["p"]), q=self._tensor(ck["q"]))
-                    if ck["phis"].shape == tuple(state.phis.shape[1:]):
-                        state = state.replace(phis=self._tensor(ck["phis"]),
-                                              qhis=self._tensor(ck["qhis"]))
-                elif j != 0 and j != self.nstart:
-                    raise FileNotFoundError("no previous checkpoint exists")
-                self._draw_noise(seed, j)
-                system = self._build_system()
+                    if os.path.isfile(fnm):
+                        # chain from the previous run with its warm history
+                        ck = np.load(fnm)
+                        state = state.replace(
+                            t=torch.as_tensor([int(ck["t"][0])],
+                                              device=self.device),
+                            p=self._tensor(ck["p"]), q=self._tensor(ck["q"]))
+                        if ck["phis"].shape == tuple(state.phis.shape[1:]):
+                            state = state.replace(
+                                phis=self._tensor(ck["phis"]),
+                                qhis=self._tensor(ck["qhis"]))
+                    elif j != 0 and j != self.nstart:
+                        raise FileNotFoundError(
+                            "no previous checkpoint exists")
+                    self._draw_noise(seed, j)
+                    system = self._build_system()
 
             trajfile = None
             if self.nstep is not None:
@@ -939,18 +968,23 @@ class md:
             try:
                 for i in range(ipie0 + 1, self.npie):
                     t0 = int(state.t[0]) % self.nmd
-                    if blocked:
-                        state, ys = run_segment_blocked(
-                            system, state, seg, t0=t0, block=self.block)
-                    else:
-                        state, ys = run_segment(system, state, seg, t0=t0)
-                    ys = {k: _host(v[0]) for k, v in ys.items()}
+                    with profiling.span("run/segment"):
+                        if blocked:
+                            state, ys = run_segment_blocked(
+                                system, state, seg, t0=t0, block=self.block)
+                        else:
+                            state, ys = run_segment(system, state, seg,
+                                                    t0=t0)
+                    profiling.count("steps", seg)
                     # a diverged segment aborts with context instead of
                     # writing non-finite checkpoints; etot observes the
                     # state at each step's start, so the final state is
                     # checked too
-                    state_bad = not bool(torch.isfinite(state.p).all()
-                                         and torch.isfinite(state.q).all())
+                    with profiling.span("run/readback"):
+                        ys = {k: _host(v[0]) for k, v in ys.items()}
+                        state_bad = not bool(torch.isfinite(state.p).all()
+                                             and torch.isfinite(state.q).all())
+                        profiling.count("syncs", 2)
                     if state_bad or not np.isfinite(ys["etot"]).all():
                         bad = seg - 1 if state_bad else int(np.argmax(
                             ~np.isfinite(ys["etot"])))
@@ -969,7 +1003,8 @@ class md:
                     for k, v in ys.items():
                         collected.setdefault(k, []).append(v)
                     if trajfile is not None:
-                        self._write_traj(trajfile, ys, seg, i)
+                        with profiling.span("run/traj"):
+                            self._write_traj(trajfile, ys, seg, i)
                     self.dump(state, i, j, outputs={
                         k: np.concatenate(v, axis=0)
                         for k, v in collected.items() if k in ck_keys})
@@ -977,7 +1012,8 @@ class md:
 
                 outputs = {k: np.concatenate(v, axis=0)
                            for k, v in collected.items()}
-                self._postrun(j, state, outputs)
+                with profiling.span("run/postrun"):
+                    self._postrun(j, state, outputs)
             finally:
                 if trajfile is not None:
                     trajfile.close()
@@ -1018,6 +1054,7 @@ class md:
                     int(ck["seed"][0]) if "seed" in ck else None, state,
                     [dev(ck[f"noise{i}"]) for i in range(len(self.baths))])
 
+    @profiling.call("RunEnsemble", "ensemble")
     def RunEnsemble(self, ntraj: int, nsteps: Optional[int] = None,
                     equil_frac: float = 0.25, block: Optional[int] = None,
                     npie: Optional[int] = None, checkpoint: bool = False,
@@ -1057,7 +1094,8 @@ class md:
         this package's integer seed under ``seed`` where the JAX package
         stores ``noise_key``/``init_key``: either package resumes the
         other's current chunk, whose state and noise are in the file, but
-        later chunks draw from the resuming package's own schedule.
+        later chunks draw from the resuming package's own schedule. One
+        report of ``utils.profiling`` a call (spans ``ensemble/...``).
         """
         from sclmd_tpu_torch.parallel.ensemble import (
             auto_chunk, bath_factors, draw_chunk, fused_chunk)
@@ -1068,49 +1106,55 @@ class md:
             raise ValueError(f"nsteps={nsteps} not divisible by "
                              f"npie={npie}")
         seg = nsteps // npie
-        system = self._build_system()
-        block = block if block is not None else self.block
-        if not (block and seg % block == 0 and blocked_supports(system)):
-            block = None
-        nb = len(self.baths)
-        skip = int(nsteps * equil_frac)
-        if chunk is None:
-            chunk = auto_chunk(system, ntraj, nsteps, block, depth=2)
-        chunk = max(1, min(int(chunk), ntraj))
+        with profiling.span("ensemble/start"):
+            system = self._build_system()
+            block = block if block is not None else self.block
+            if not (block and seg % block == 0 and blocked_supports(system)):
+                block = None
+            nb = len(self.baths)
+            skip = int(nsteps * equil_frac)
+            if chunk is None:
+                chunk = auto_chunk(system, ntraj, nsteps, block, depth=2)
+            chunk = max(1, min(int(chunk), ntraj))
 
-        seed = self._next_seed()
-        start = None
-        if self.initranvel and self.dyn is not None:
-            T_init = self.T
-            if steady_init and self.baths:
-                T_init = steady_mode_temps(self.U, self.baths, self.T,
-                                           hw=self.hw)
-            start = self._thermal_start(T_init)
-        facs = bath_factors(self.baths, self.device)
-        cur_sum = np.zeros((ntraj, nb))
-        # counted steps per trajectory, the same for every chunk: a
-        # function of the segment schedule (a resumed call must not count
-        # again)
-        cur_cnt = sum(seg - min(max(0, skip - i * seg), seg)
-                      for i in range(npie))
-        ichunk0, ipie0, ck_state, ck_noises = 0, -1, None, None
-        fn = self._eck_file()
-        if checkpoint and os.path.isfile(fn):
-            ichunk0, ipie0, cur_sum, ck_seed, ck_state, ck_noises = \
-                self._load_ensemble_checkpoint(fn, ntraj, chunk)
-            if ck_seed is not None:
-                seed = ck_seed
+            seed = self._next_seed()
+            start = None
+            if self.initranvel and self.dyn is not None:
+                T_init = self.T
+                if steady_init and self.baths:
+                    T_init = steady_mode_temps(self.U, self.baths, self.T,
+                                               hw=self.hw)
+                start = self._thermal_start(T_init)
+            facs = bath_factors(self.baths, self.device)
+            cur_sum = np.zeros((ntraj, nb))
+            # counted steps per trajectory, the same for every chunk: a
+            # function of the segment schedule (a resumed call must not
+            # count again)
+            cur_cnt = sum(seg - min(max(0, skip - i * seg), seg)
+                          for i in range(npie))
+            ichunk0, ipie0, ck_state, ck_noises = 0, -1, None, None
+            fn = self._eck_file()
+            if checkpoint and os.path.isfile(fn):
+                ichunk0, ipie0, cur_sum, ck_seed, ck_state, ck_noises = \
+                    self._load_ensemble_checkpoint(fn, ntraj, chunk)
+                if ck_seed is not None:
+                    seed = ck_seed
 
         def finish(c0, c1):
-            self._write_kappa_files(cur_sum[c0:c1] / max(cur_cnt, 1), c0)
+            with profiling.span("ensemble/files"):
+                self._write_kappa_files(cur_sum[c0:c1] / max(cur_cnt, 1), c0)
 
         def drain(item):
             d0, d1, dic, di, dsum, dok, last = item
-            if not bool(dok):
+            with profiling.span("ensemble/readback"):
+                good = bool(dok)
+                if good:
+                    cur_sum[d0:d1] += dsum.double().cpu().numpy()
+            profiling.count("syncs", 2 if good else 1)
+            if not good:
                 raise FloatingPointError(
                     f"RunEnsemble: non-finite heat currents in chunk {dic} "
                     f"segment {di} - reduce dt or check the force driver")
-            cur_sum[d0:d1] += dsum.double().cpu().numpy()
             if last:
                 # the chunk's kappa files, while the next chunk runs
                 finish(d0, d1)
@@ -1127,14 +1171,17 @@ class md:
                     finish(c0, c1)
                     continue
             else:
-                noises, states = draw_chunk(facs, seed, c0, c1, self.dt,
-                                            self.nmd, start, system)
+                with profiling.span("ensemble/draw"):
+                    noises, states = draw_chunk(facs, seed, c0, c1, self.dt,
+                                                self.nmd, start, system)
                 pie0 = 0
             for i in range(pie0, npie):
-                states, sums, ok = fused_chunk(
-                    system, facs, None, seg, (i * seg) % self.nmd, block,
-                    min(max(0, skip - i * seg), seg), noises=noises,
-                    states=states)
+                with profiling.span("ensemble/segment"):
+                    states, sums, ok = fused_chunk(
+                        system, facs, None, seg, (i * seg) % self.nmd, block,
+                        min(max(0, skip - i * seg), seg), noises=noises,
+                        states=states)
+                profiling.count("steps", seg)
                 item = (c0, c1, ic, i, sums, ok, i == npie - 1)
                 if checkpoint:
                     drain(item)
@@ -1157,29 +1204,30 @@ class md:
 
     def _save_ensemble_checkpoint(self, fn, states, noises, ic, ipie, chunk,
                                   ntraj, cur_sum, cur_cnt, seed):
-        data = {"p": _host(states.p), "q": _host(states.q),
-                "t": _host(states.t), "phis": _host(states.phis),
-                "qhis": _host(states.qhis), "ichunk": np.asarray([ic]),
-                "ipie": np.asarray([ipie]), "chunk": np.asarray([chunk]),
-                "ntraj": np.asarray([ntraj]), "nmd": np.asarray([self.nmd]),
-                "dt": np.asarray([self.dt]), "cur_sum": cur_sum,
-                "cur_cnt": np.asarray([cur_cnt]),
-                "seed": np.asarray([seed], np.uint64)}
-        for ib, nz in enumerate(noises):
-            data[f"noise{ib}"] = _host(nz)
-        np.savez(fn, **data)
+        with profiling.span("ensemble/checkpoint"):
+            data = {"p": _host(states.p), "q": _host(states.q),
+                    "t": _host(states.t), "phis": _host(states.phis),
+                    "qhis": _host(states.qhis), "ichunk": np.asarray([ic]),
+                    "ipie": np.asarray([ipie]), "chunk": np.asarray([chunk]),
+                    "ntraj": np.asarray([ntraj]),
+                    "nmd": np.asarray([self.nmd]),
+                    "dt": np.asarray([self.dt]), "cur_sum": cur_sum,
+                    "cur_cnt": np.asarray([cur_cnt]),
+                    "seed": np.asarray([seed], np.uint64)}
+            for ib, nz in enumerate(noises):
+                data[f"noise{ib}"] = _host(nz)
+            _save_npz(fn, data)
 
     # ---- output files ----
     def _write_kappa_files(self, means, lo: int = 0):
         """Per-trajectory kappa.T.bathI.runJ.dat files of trajectories
         lo, lo+1, ... (the rows of ``means``), the format the calHF/calTC
         aggregators read."""
-        for jj, row in enumerate(means):
-            jtraj = lo + jj
-            for ii, m in enumerate(row):
-                _write_text(os.path.join(
-                    self.outdir, f"kappa.{self.T:g}.bath{ii}.run{jtraj}.dat"),
-                    "%i %f    %f \n" % (jtraj, self.T, m * U.CURCOF))
+        _write_texts(
+            (os.path.join(self.outdir,
+                          f"kappa.{self.T:g}.bath{ii}.run{lo + jj}.dat"),
+             "%i %f    %f \n" % (lo + jj, self.T, m * U.CURCOF))
+            for jj, row in enumerate(means) for ii, m in enumerate(row))
 
     def _write_traj(self, fh, ys, seg, ipie):
         """ani-format frames every ``nstep`` steps: element, position

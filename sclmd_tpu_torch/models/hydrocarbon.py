@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch.models.driver import Consts, DriverShell
+from sclmd_tpu_torch.utils import profiling
 
 # textbook C-H spectroscopic constants (see the module docstring)
 CH_MORSE = dict(D=4.3, r0=1.09, alpha=1.885, cutoff=1.9)
@@ -218,10 +219,11 @@ class CHDriver(DriverShell):
                  dtype=torch.float64, morse=None, k_bend=CH_BEND_K,
                  k_oop=CH_OOP_K, tersoff_params=None, device=None):
         from sclmd_tpu_torch.kernels.ch_force import CHForce
-        efn, bonds = ch_energy(axyz, cell=cell, max_nnei=max_nnei,
-                               cutoff_skin=cutoff_skin, morse=morse,
-                               k_bend=k_bend, k_oop=k_oop,
-                               tersoff_params=tersoff_params)
-        self.ch_bonds = bonds
-        self._attach(efn, axyz, dtype, device)
-        self._use_kernel(CHForce(efn.terms, self._drv))
+        with profiling.span("setup/driver"):
+            efn, bonds = ch_energy(axyz, cell=cell, max_nnei=max_nnei,
+                                   cutoff_skin=cutoff_skin, morse=morse,
+                                   k_bend=k_bend, k_oop=k_oop,
+                                   tersoff_params=tersoff_params)
+            self.ch_bonds = bonds
+            self._attach(efn, axyz, dtype, device)
+            self._use_kernel(CHForce(efn.terms, self._drv))

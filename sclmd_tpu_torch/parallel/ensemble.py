@@ -175,7 +175,15 @@ def fused_chunk(system: GLESystem, facs, rs, nsteps: int, t0: int,
 
 def cur_reduce(cur: torch.Tensor, lo: int):
     """Per-trajectory current sums over steps [lo, nsteps) and the finite
-    flag of every step's currents."""
+    flag of every step's currents.
+
+    The stable observation point for per-step currents: ``fused_chunk``
+    calls it through this module at call time with each segment's
+    (chunk, steps, nb) currents on the device, so a wrapper set on
+    ``parallel.ensemble.cur_reduce`` sees every segment of every chunk in
+    order (the benchmark's correctness check keeps a few trajectories'
+    rows this way). Keep its name, arguments and the call through the
+    module."""
     return cur[:, lo:, :].sum(dim=1), torch.isfinite(cur).all()
 
 

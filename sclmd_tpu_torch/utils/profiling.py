@@ -1,22 +1,187 @@
-"""Tracing and profiling utilities (counterpart of
-``sclmd_tpu.utils.profiling``).
+"""Tracing and profiling of the port (counterpart of
+``sclmd_tpu.utils.profiling``): one system of spans, counters and
+per-call reports, with the section ``Tracer``, ``device_trace``, the
+operation count of ``compiled_cost`` and the GLE step's cost model on
+top of it.
 
-A nested wall-clock section tracer whose report gives calls and total
-time per section; a ``torch.profiler`` trace of everything launched
-inside a block; the operation count of a function by
-``torch.utils.flop_counter.FlopCounterMode``; and the analytic cost model
-of one GLE step.
+Spans. ``span(name)`` times a block on the host clock
+(``time.perf_counter_ns``) into the open report. Only while a
+``torch.profiler`` session runs does it also open
+``torch.profiler.record_function("sclmd:" + name)``, so the program's
+spans lie in the profiler's Chrome trace on the clock of the device's
+kernels, and an idle gap of the card can be put down to the span open
+on the host. With no profiler a span costs one flag check and two clock
+reads. Spans mark layer boundaries (a call, a chunk, a segment, a
+read-back, a batch of files, a checkpoint), never a step:
+
+    ensemble             md.RunEnsemble, the whole call
+    ensemble/start       the system, seed, thermal start, factors,
+                         the MDE.npz load
+    ensemble/draw        a chunk's noise and start (draw_chunk)
+    ensemble/segment     a chunk's segment enqueued (fused_chunk)
+    ensemble/readback    the host's wait for a segment's sums and flag
+    ensemble/files       a chunk's kappa files
+    ensemble/checkpoint  an MDE.npz write
+    run                  md.Run, the whole call
+    run/start            system, seed, initialise, checkpoint probing,
+                         the run's noise
+    run/segment          a segment (run_segment or run_segment_blocked)
+    run/readback         the segment's outputs copied to the host and
+                         the finite checks
+    run/checkpoint       an MD{j}.npz write (dump)
+    run/traj             the .ani frames of a segment
+    run/postrun          _postrun: spectra, kappa and structure files,
+                         the last checkpoint
+    setup/library        loading (or building) the kernel library
+    setup/bath           a bath's PSD factorisation
+    setup/driver         CHDriver's tables and kernel pack
+    setup/thermal_start  the eigh of the dynamical matrix (set_dyn)
+
+Counters. ``counters()`` reads them all: the program's own, added with
+``count`` (``steps``: the steps enqueued, a segment's at once, summed
+over chunks; ``syncs``: the runners' reads of device values, each
+``md._host`` copy and finite flag; ``files`` and
+``bytes_written``: kappa, power and structure files and the MD{j}.npz /
+MDE.npz checkpoints; ``library_builds``: compilations of the kernel
+library), and the kernels' launch counters, each a plain integer global
+of its module registered once at import (``register``):
+``launches.K7`` is ``kernels.bath_force.launches`` (``launches.K9`` and
+``launches.K10`` count evaluations, three kernels each).
+
+Reports. ``md.RunEnsemble`` and ``md.Run`` each run inside ``call``,
+which opens one ``Report``: the entry, its wall seconds, ``{span:
+[count, host seconds]}`` and each counter's change over the call.
+``reports()`` gives the last 64, oldest first; spans outside any call go
+into ``process_report()`` (set-up).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import sys
 import time
-from collections import defaultdict
 from typing import Optional
 
 import torch
+
+PREFIX = "sclmd:"
+RING = 64
+
+
+class Report:
+    """What one runner call (or, for ``process_report``, everything
+    outside a call) did: ``entry``, ``wall_s``, ``spans`` ({name: [count,
+    host seconds]}) and ``counters`` (each counter's change)."""
+
+    __slots__ = ("entry", "wall_s", "spans", "counters")
+
+    def __init__(self, entry: str):
+        self.entry, self.wall_s = entry, 0.0
+        self.spans, self.counters = {}, {}
+
+    def span_s(self, name: str) -> float:
+        return self.spans.get(name, (0, 0.0))[1]
+
+    def span_count(self, name: str) -> int:
+        return self.spans.get(name, (0, 0.0))[0]
+
+    def to_dict(self) -> dict:
+        return {"entry": self.entry, "wall_s": self.wall_s,
+                "spans": {k: list(v) for k, v in self.spans.items()},
+                "counters": dict(self.counters)}
+
+
+_process = Report("process")
+_open = []                              # reports of the calls under way
+_ring = collections.deque(maxlen=RING)
+_counts = dict.fromkeys(("steps", "syncs", "files", "bytes_written",
+                         "library_builds"), 0)
+_registered = {}                        # name -> (module name, attribute)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the program counter ``name``."""
+    _counts[name] += n
+
+
+def register(name: str, module: str, attr: str):
+    """Read the integer global ``attr`` of ``module`` as counter
+    ``name``; a kernel module registers its launch counters at import."""
+    _registered[name] = (module, attr)
+
+
+def counters() -> dict:
+    """Every counter's value now."""
+    out = dict(_counts)
+    for name, (mod, attr) in _registered.items():
+        out[name] = getattr(sys.modules[mod], attr)
+    return out
+
+
+def reports() -> list:
+    """The last ``RING`` runner calls' reports, oldest first."""
+    return list(_ring)
+
+
+def process_report() -> Report:
+    """The spans opened outside every call (set-up)."""
+    return _process
+
+
+class span:
+    """``with span(name):`` adds the block's host time to the open
+    report (``seconds`` after the block); under a running
+    ``torch.profiler`` the block is also ``record_function("sclmd:" +
+    name)``."""
+
+    __slots__ = ("name", "seconds", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(PREFIX + self.name)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = (time.perf_counter_ns() - self._t0) * 1e-9
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        spans = (_open[-1] if _open else _process).spans
+        st = spans.get(self.name)
+        if st is None:
+            spans[self.name] = [1, self.seconds]
+        else:
+            st[0] += 1
+            st[1] += self.seconds
+        return False
+
+
+@contextlib.contextmanager
+def call(entry: str, name: str):
+    """One runner call: a new report, the whole call as span ``name``,
+    the counters' changes; the report joins ``reports()`` when the call
+    ends, whether it returns or raises. Usable as a decorator."""
+    rep = Report(entry)
+    before = counters()
+    _open.append(rep)
+    t0 = time.perf_counter_ns()
+    try:
+        with span(name):
+            yield rep
+    finally:
+        rep.wall_s = (time.perf_counter_ns() - t0) * 1e-9
+        _open.remove(rep)
+        rep.counters = {k: v - before.get(k, 0)
+                        for k, v in counters().items()}
+        _ring.append(rep)
 
 
 def device_sync():
@@ -26,7 +191,8 @@ def device_sync():
 
 
 class Tracer:
-    """Nested wall-clock section tracer.
+    """Nested sections, each a ``span`` of its path (``outer/inner``),
+    with calls and seconds kept per path in ``stats`` as well.
 
     with tracer.section("noise"):
         ...
@@ -34,7 +200,8 @@ class Tracer:
     """
 
     def __init__(self):
-        self.stats = defaultdict(lambda: [0, 0.0])   # name -> [calls, secs]
+        # path -> [calls, seconds]
+        self.stats = collections.defaultdict(lambda: [0, 0.0])
         self._stack = []
 
     @contextlib.contextmanager
@@ -43,17 +210,19 @@ class Tracer:
         clock stops, so queued card work is counted."""
         path = "/".join([*self._stack, name])
         self._stack.append(name)
-        t0 = time.perf_counter()
+        sp = span(path)
         try:
-            yield
+            with sp:
+                try:
+                    yield
+                finally:
+                    if sync is not None:
+                        sync()
         finally:
-            if sync is not None:
-                sync()
-            dt = time.perf_counter() - t0
             self._stack.pop()
             st = self.stats[path]
             st[0] += 1
-            st[1] += dt
+            st[1] += sp.seconds
 
     def wrap(self, name: str, fn, sync_result: bool = True):
         """Wrap a callable so every invocation is traced; the card's

@@ -1,106 +1,17 @@
 """The port's measurement tools on the CPU: the primary-junction set-up
-that chip_smoke.py and the sweeps share, the kernel's tap-major operand,
-and the trace summary of ``tools.profile_e2e``. No JAX."""
+that chip_smoke.py and the sweeps share, and the kernel's tap-major
+operand. No JAX."""
 
-import json
 import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-from sclmd_tpu_torch import baths as TB
-from sclmd_tpu_torch import md as TMD
 from sclmd_tpu_torch.kernels import gle_block as K1
 from sclmd_tpu_torch.tools import primary as P
-from sclmd_tpu_torch.tools import profile_e2e as PE
 
 torch.set_num_threads(2)
-
-
-@pytest.mark.parametrize("intervals,want", [
-    ([], 0.0),
-    ([(0, 1000), (2000, 3000)], 2.0),
-    ([(0, 2000), (1000, 3000)], 3.0),
-    ([(0, 3000), (1000, 2000), (2500, 4000)], 4.0),
-])
-def test_union_ms(intervals, want):
-    assert PE._union_ms(intervals) == pytest.approx(want)
-
-
-def test_summarise_synthetic_trace(tmp_path):
-    ev = [
-        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 0, "dur": 4000},
-        {"ph": "X", "cat": "kernel", "name": "k2", "ts": 3000, "dur": 2000},
-        {"ph": "X", "cat": "gpu_memcpy", "name": "cp", "ts": 8000,
-         "dur": 1000},
-        {"ph": "X", "cat": "user_annotation", "name": "host:K1_gle_block",
-         "ts": 0, "dur": 500},
-        {"ph": "X", "cat": "gpu_user_annotation",
-         "name": "host:K1_gle_block", "ts": 0, "dur": 4000},
-        {"ph": "i", "cat": "kernel", "name": "instant", "ts": 0},
-    ]
-    path = tmp_path / "trace.json"
-    path.write_text(json.dumps({"traceEvents": ev}))
-    s = PE.summarise(str(path), 0.010)
-    assert s["device_busy_ms"] == pytest.approx(6.0)
-    assert s["idle_share"] == pytest.approx(0.4)
-    assert s["spans"]["K1_gle_block"] == {"calls": 1, "host_ms": 0.5,
-                                          "device_ms": 4.0}
-    assert s["spans"]["kappa_files"]["calls"] == 0
-    assert [k["name"] for k in s["top_kernels"]] == ["k1", "k2"]
-
-
-def test_profile_spans_cover_run_ensemble(tmp_path):
-    """Every span of the profile wraps a function that the profiled
-    workloads (blocked and plain RunEnsemble, md.Run) really call, and
-    the wrappers come off again. The K5/K6/K7 spans wrap the launches,
-    which happen only on the card, and so do K1's near- and far-tap
-    launches."""
-    nmd, dt, nat = 32, 0.4, 4
-    gwl = np.linspace(0.0, 0.6, 16)
-    gam = np.array([np.eye(3) * 0.02 * np.exp(-(w / 0.3) ** 2)
-                    for w in gwl])
-    from sclmd_tpu_torch.models.harmonic import chain_dynmat
-    r = TMD.md(dt, nmd, 300.0, axyz=[["C", 1.0 * i, 0.0, 0.0]
-                                     for i in range(nat)],
-               dyn=chain_dynmat(3 * nat, 0.05).numpy(), dtype=torch.float64,
-               outdir=str(tmp_path), block=8, device="cpu")
-    for Tb, cats in ((330.0, range(3)), (270.0, range(9, 12))):
-        r.AddBath(TB.phbath(Tb, cats, 0.3, 32, dt, nmd, ml=9, gamma=gam,
-                            gwl=gwl, dtype=torch.float64, device="cpu"))
-    before = TMD.md._write_kappa_files, TMD.gle_block
-    undo = PE._wrap_spans()
-    try:
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            r.RunEnsemble(3, nsteps=16, block=8)
-            r.block = None
-            r.RunEnsemble(3, nsteps=16)
-            r.npie = 2
-            r.Run()
-    finally:
-        undo()
-    assert (TMD.md._write_kappa_files, TMD.gle_block) == before
-    path = str(tmp_path / "trace.json")
-    prof.export_chrome_trace(path)
-    spans = PE.summarise(path, 1.0)["spans"]
-    assert set(spans) == set(PE.SPANS)
-    card_only = {"K5_ch_force", "K6_conv_tails", "K7_bath_force", "K1_near",
-                 "K1_far"}
-    assert [k for k, v in spans.items()
-            if k not in card_only and not v["calls"]] == []
-    assert spans["K1_gle_block"]["calls"] == 2
-    assert spans["K2_block_corr"]["calls"] == 4
-    # noise synthesis (K3 and the C2R stage on the card): one call per
-    # bath for each of the two one-chunk ensembles and for md.Run's one
-    # run; the thermal start (K3b) once per ensemble chunk and once for
-    # md.Run's start
-    assert spans["noise_synth"]["calls"] == 6
-    assert spans["noise_synthesis"]["calls"] == 6
-    assert spans["noise_c2r"]["calls"] == 6
-    assert spans["init_draws"]["calls"] == 3
-    assert spans["thermal_init"]["calls"] == 3
 
 
 @pytest.mark.parametrize("nc,block", [(3, 4), (8, 2), (90, 3)])
@@ -159,8 +70,6 @@ def test_card_scripts_refuse_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         plain_bench.main()
-    with pytest.raises(SystemExit, match="CUDA"):
-        PE.main(["--out", "unused"])
 
 
 def test_flagship_bpt_setup_cpu():
