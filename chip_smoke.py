@@ -779,7 +779,8 @@ def k6_times(ring, head, baths, k6):
     flops = sum(ntraj * 2 * 2 * b.nc * (b.ml - 2) * b.nc for b in baths)
     nbytes = 4 * sum(b.nc * (b.ml - 2) * b.nc + ntraj * (b.ml - 1) * b.nc
                      + 2 * ntraj * b.nc for b in baths)
-    return _timed(lambda: k6(head),
+    step = (-head) % mlr              # the segment step at that head
+    return _timed(lambda: k6(step),
                   lambda: K6.conv_tails_plain(ring, head, baths), library,
                   flops, nbytes, 50, 20)
 
@@ -837,17 +838,18 @@ def k7_outputs(c, kernel: bool):
     ring0 = c.ring.clone()
     fbs = [torch.zeros((c.ntraj, b.nc), device=c.p.device) for b in c.baths]
     f_out = torch.zeros_like(c.p)
+    # step 0 of K7Case's segment: head 0, push row mlr - 1, rows 3 and 4
     head, push = 0, (c.mlr - 1) % c.mlr
     if kernel:
-        ph, qt = c.force.pred(c.p, c.q, c.pf, c.ring, head, push, c.tails,
-                              3, c.cur, c.etot, fbs)
-        pc, _ = c.force.corr(c.x, qt, c.pf2, c.p, ph, c.tails, 4)
-        pl, ql = c.force.corr(c.x, qt, c.pf2, c.p, ph, c.tails, 4,
+        ph, qt = c.force.pred(c.p, c.q, c.pf, c.ring, 0, c.tails, c.cur,
+                              c.etot, fbs)
+        pc, _ = c.force.corr(c.x, qt, c.pf2, c.p, ph, c.tails, 0)
+        pl, ql = c.force.corr(c.x, qt, c.pf2, c.p, ph, c.tails, 0,
                               mask=c.mask, f_out=f_out)
     else:
         args = (c.force.ops, c.tails)
         ph, qt = K7.pred_plain(c.p, c.q, c.pf, c.ring, head, push, *args,
-                               3, c.dt, c.cur, c.etot, fbs)
+                               3, c.dt, c.cur[:, 0], c.etot[:, 0], fbs)
         pc, _ = K7.corr_plain(c.x, qt, c.pf2, c.p, ph, *args, 4, c.dt)
         pl, ql = K7.corr_plain(c.x, qt, c.pf2, c.p, ph, *args, 4, c.dt,
                                c.mask, f_out)
@@ -901,7 +903,7 @@ def check_plain_kernels(ops):
 
     k6_abs = k7_abs = 0.0
     for n, (ring, head, baths, k6) in ops["k6"].items():
-        got = [t.clone() for t in k6(head)]
+        got = [t.clone() for t in k6((-head) % ring.shape[1])]
         want = K6.conv_tails_plain(ring, head, baths)
         errs = [rel_err(g, w) for g, w in zip(got, want)]
         k6_rel = max(e[0] for e in errs)

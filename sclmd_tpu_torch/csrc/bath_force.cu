@@ -9,9 +9,26 @@
 // electron bath:         s = 1,  Mv = efric (+ bias zeta2),
 //                        Mq = bias (exim - zeta1) when bias terms are on.
 // f = pf + sum_b scatter(fb). Stage 0 (predictor) writes pthalf = x + dt/2 f,
-// qtt = q + dt x + dt^2/2 f, cur_b = fb . x, etot = x.x / 2 and pushes x
-// onto the history ring; stage 1 (corrector) writes base + dt/2 f; stage 2
+// qtt = q + dt x + dt^2/2 f, cur_b = fb . x, etot = x.x / 2, pushes x
+// onto the history ring and, where asked, writes x and q into the step's
+// rows of ps and qs; stage 1 (corrector) writes base + dt/2 f; stage 2
 // (last corrector) writes (base + dt/2 f) mask and q mask.
+//
+// The step a launch runs is read on the card: s = *step + step_off, the
+// segment's step word (kernels/step_graph.py) plus the launch's offset.
+// From s come the noise row (t0 + s, one more for the correctors, mod
+// nmd), the ring's head (-s mod mlr) and push row (head - 1), and the
+// output rows of cur, etot, ps and qs, so a launch captured in a CUDA graph
+// runs the right step at every replay. The reads go out in the order they
+// had with the rows as launch arguments (the noise rows, then the
+// vectors, then the first batch of matrix loads), behind the word's load,
+// and s comes back from shared memory for the output rows at the end:
+// kept in registers across the product, with the matrix loads first, it
+// took 96-99 registers against 64-72 on the tiles of one to four, and
+// 7-17 % more time a launch on the H100. Staging the rows in buffers of
+// fixed address instead, written by the predictor for the launches after
+// it, made every stage slower in a step's sequence (K7 is short and its
+// time follows its code's size).
 //
 // Replaces: the Pallas kernel fused_bath_force
 // (a5170d2:sclmd_tpu/ops/kernels.py:98, pallas_call at :116), whose live
@@ -78,7 +95,9 @@ struct BfArgs {
   const float* x;      // (ntraj, nph) velocity the friction acts on
   const float* q;      // (ntraj, nph) displacement
   const float* pf;     // (ntraj, nph) potential force
-  const float* h;      // second friction tap, row stride h_stride, or null
+  // second friction tap, row stride h_stride, or null: stage 0 the ring
+  // (ntraj, mlr, nph), read at the head row; stages 1, 2 the pre-step p
+  const float* h;
   const float* base;   // (ntraj, nph) pthalf (stages 1, 2)
   const float* mask;   // (nph,) (stage 2)
   float* out_p;
@@ -86,9 +105,15 @@ struct BfArgs {
   float* f_out;        // (ntraj, nph) total force, or null
   float* cur;          // row stride cur_stride, nb entries (stage 0)
   float* etot;         // row stride etot_stride (stage 0)
-  float* push;         // ring row, row stride push_stride, or null
-  long long h_stride, push_stride, cur_stride, etot_stride;
-  int ntraj, nph, nb, nmd, row, stage, tt, tail_col;
+  float* push;         // the ring (row push), row stride push_stride, or null
+  float* ps;           // stage 0: x at the step's row, or null
+  float* qs;           // stage 0: q at the step's row, or null
+  const int* step;     // the segment's step word
+  // cur, etot, ps and qs: a row stride per trajectory (*_stride) and per
+  // step (*_step)
+  long long h_stride, push_stride, cur_stride, etot_stride, ps_stride,
+      qs_stride, cur_step, etot_step, ps_step, qs_step;
+  int ntraj, nph, nb, nmd, t0, step_off, mlr, stage, tt, tail_col;
   // shared-memory offsets, in floats: the force, staged x, h, q, base and
   // mask, the baths' indices; then the bytes in all
   int f_off, xs_off, hs_off, qs_off, bs_off, ms_off, ci_off, smem_bytes;
@@ -163,8 +188,13 @@ bath_force_kernel(const BfArgs a) {
   float4 m[U];
 
   // every global read of the evaluation that does not wait for the
-  // indices goes out here, asynchronously and at once, the first batch of
-  // matrix loads behind them: one round trip, whatever depends on what
+  // indices goes out here, asynchronously and at once, behind the step
+  // word's load, the first batch of matrix loads behind them: one round
+  // trip after the word's, whatever depends on what
+  __shared__ int step_sh;   // s, for the output rows at the end
+  const int s = *a.step + a.step_off;
+  if (tid == 0) step_sh = s;
+  const int row = (a.t0 + s + (a.stage != 0)) % a.nmd;
 #pragma unroll
   for (int i = 0; i < BF_MAX_BATHS; ++i) {
     if (i < a.nb) {
@@ -175,13 +205,15 @@ bath_force_kernel(const BfArgs a) {
       for (int idx = tid; idx < ntt * nc; idx += NT) {
         const int t = idx / nc, c = idx - t * nc;
         const size_t r = (size_t)(tr0 + t);
-        cp_async4(sm + B.z_off + idx, B.noise + (r * a.nmd + a.row) * nc + c);
+        cp_async4(sm + B.z_off + idx, B.noise + (r * a.nmd + row) * nc + c);
         if (B.tail)
           cp_async4(sm + B.tl_off + idx,
                     B.tail + (r * nc + c) * 2 + a.tail_col);
       }
     }
   }
+  const int head = a.stage == 0 ? (a.mlr - s % a.mlr) % a.mlr : 0;
+  const float* H = a.h + (size_t)head * nph;   // the second tap's row
   for (int i = tid; i < ntt * nph; i += NT) {
     cp_async4(F + i, a.pf + g0 + i);
     if (STAGED) {
@@ -190,8 +222,7 @@ bath_force_kernel(const BfArgs a) {
       if (a.stage != 0) cp_async4(BS + i, a.base + g0 + i);
       if (a.need_h) {
         const int t = i / nph;
-        cp_async4(HS + i,
-                  a.h + (size_t)(tr0 + t) * a.h_stride + (i - t * nph));
+        cp_async4(HS + i, H + (size_t)(tr0 + t) * a.h_stride + (i - t * nph));
       }
     }
   }
@@ -227,7 +258,7 @@ bath_force_kernel(const BfArgs a) {
         } else {
           const size_t r = (size_t)(tr0 + t);
           cp_async4(V + idx, src == 0   ? a.x + r * nph + ci[c]
-                             : src == 1 ? a.h + r * a.h_stride + ci[c]
+                             : src == 1 ? H + r * a.h_stride + ci[c]
                                         : a.q + r * nph + ci[c]);
         }
       }
@@ -320,6 +351,7 @@ bath_force_kernel(const BfArgs a) {
       }
     }
   }
+  const int se = step_sh;
   // the predictor's heat currents, a warp per (bath, trajectory)
   if (a.stage == 0 && a.cur) {
 #pragma unroll
@@ -334,7 +366,8 @@ bath_force_kernel(const BfArgs a) {
           for (int j = lane; j < B.nc; j += 32)
             c += Z[t * B.nc + j] * V[t * B.K + j];
           c = warp_sum(c);
-          if (lane == 0) a.cur[(size_t)(tr0 + t) * a.cur_stride + i] = c;
+          if (lane == 0)
+            a.cur[(size_t)(tr0 + t) * a.cur_stride + se * a.cur_step + i] = c;
         }
       }
     }
@@ -349,9 +382,16 @@ bath_force_kernel(const BfArgs a) {
       const float q = STAGED ? QS[i] : a.q[g];
       a.out_p[g] = x + f * a.hdt;
       a.out_q[g] = q + x * a.dt + f * a.dt2h;
-      if (a.push) {
-        const int t = i / nph;
-        a.push[(size_t)(tr0 + t) * a.push_stride + (i - t * nph)] = x;
+      if (a.push || a.ps || a.qs) {
+        const int t = i / nph, j = i - t * nph;
+        const size_t r = (size_t)(tr0 + t);
+        // the push row, the one before the head: -se - 1 mod mlr
+        if (a.push) {
+          const int pr = a.mlr - 1 - se % a.mlr;
+          a.push[r * a.push_stride + (size_t)pr * nph + j] = x;
+        }
+        if (a.ps) a.ps[r * a.ps_stride + se * a.ps_step + j] = x;
+        if (a.qs) a.qs[r * a.qs_stride + se * a.qs_step + j] = q;
       }
     } else if (a.stage == 1) {
       const float b = STAGED ? BS[i] : a.base[g];
@@ -374,7 +414,9 @@ bath_force_kernel(const BfArgs a) {
         e += x * x;
       }
       e = warp_sum(e);
-      if (lane == 0) a.etot[(size_t)(tr0 + t) * a.etot_stride] = 0.5f * e;
+      if (lane == 0)
+        a.etot[(size_t)(tr0 + t) * a.etot_stride + se * a.etot_step] =
+            0.5f * e;
     }
   }
 }
@@ -397,7 +439,8 @@ static int launch(const BfArgs& a, cudaStream_t st) {
 extern "C" int bath_force_f32(const BfArgs* args, void* stream) {
   const BfArgs& a = *args;
   if (a.nb < 0 || a.nb > BF_MAX_BATHS || a.ntraj < 1 || a.nph < 1 ||
-      a.stage < 0 || a.stage > 2)
+      a.stage < 0 || a.stage > 2 || !a.step || a.nmd < 1 ||
+      (a.stage == 0 && a.mlr < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (a.tt) {

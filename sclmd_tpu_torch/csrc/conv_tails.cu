@@ -4,6 +4,11 @@
 //   tails[t][a][0] = sum_{r=2}^{ml-1} sum_b K[r][a][b] old_t[r-1][b]
 //   tails[t][a][1] = sum_{r=2}^{ml-1} sum_b K[r][a][b] old_t[r-2][b]
 //   old_t[i][b]    = ring[t][(head + i) % mlr][cids[b]]
+//   head           = -s mod mlr,  s = *step + step_off
+//
+// The step s is read on the card from the segment's step word plus the
+// launch's offset (kernels/step_graph.py), so a launch captured in a CUDA
+// graph reads the right history rows at every replay.
 //
 // Replaces: the Pallas kernel memory_conv_tails
 // (a5170d2:sclmd_tpu/ops/kernels.py:127, a pallas_call through conv_matmul
@@ -69,7 +74,8 @@ struct CtArgs {
   const int* desc;     // (ncta, 8): bath, a0, ra, r0, r1, stream, c0, cn
   float* part;         // (ntiles, ncta, tt, CT_ROWS, 2) partial sums
   unsigned* tickets;   // (ntiles, nstream), zero between launches
-  int ntraj, mlr, nph, head, nb, ncta, ntiles, nstream, tt;
+  const int* step;     // the segment's step word
+  int ntraj, mlr, nph, step_off, nb, ncta, ntiles, nstream, tt;
   int nstage, kfloats, hld, smem_bytes;
   int keep_permille;   // share of a CTA's taps asked to stay in L2
   CtBath baths[CT_MAX_BATHS];
@@ -198,6 +204,7 @@ conv_tails_kernel(const CtArgs a) {
     // last floats where they are off a 16-byte boundary and the history
     // row r-1 (for the first tap r-2 as well) by 4-byte cp.async
     const int pl = tid - 32 * CT_CWARPS;
+    const int step = *a.step + a.step_off;   // the step this launch runs
     const float* rbase[TT];
 #pragma unroll
     for (int t = 0; t < TT; ++t)
@@ -212,7 +219,8 @@ conv_tails_kernel(const CtArgs a) {
                  : "=l"(pol_go));
     const int keep = (int)(((long long)ntaps * a.keep_permille) / 1000);
     int s = 0, ph = 1;
-    int slot = (r0 - 2) % (S + 1), row = (a.head + r0 - 2) % a.mlr;
+    const int head = (a.mlr - step % a.mlr) % a.mlr;
+    int slot = (r0 - 2) % (S + 1), row = (head + r0 - 2) % a.mlr;
     for (int i = 0; i < ntaps; ++i) {
       mbar_wait(empty0 + 8 * s, ph);
       const int r = r0 + i;
@@ -385,6 +393,7 @@ static int launch(const CtArgs& a, cudaStream_t st) {
 extern "C" int conv_tails_f32(const CtArgs* args, void* stream) {
   const CtArgs& a = *args;
   if (a.nb < 1 || a.nb > CT_MAX_BATHS || a.ntraj < 1 || a.ncta < 1 ||
+      !a.step ||
       a.nstage < 2 || a.nstage > CT_MAX_STAGES ||
       a.ntiles != (a.ntraj + a.tt - 1) / a.tt)
     return (int)cudaErrorInvalidValue;

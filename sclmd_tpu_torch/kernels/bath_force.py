@@ -12,9 +12,12 @@ Per bath, on its DOFs (``cids``), with this evaluation's noise row n:
 
 The bath forces are scattered onto the potential force. The predictor
 stage then writes the Verlet half-step (``pthalf``, ``qtt``), the heat
-currents ``cur_b = f_b . p``, ``etot = p.p / 2`` and pushes p onto the
-history ring; a corrector stage writes ``pthalf + dt/2 f``, and the last
-one applies the constraint mask to it and to ``qtt``.
+currents ``cur_b = f_b . p``, ``etot = p.p / 2``, the step's p and q
+into the per-step outputs ``ps`` and ``qs`` where asked, and pushes p
+onto the history ring; a corrector stage writes ``pthalf + dt/2 f``, and
+the last one applies the constraint mask to it and to ``qtt``. The
+kernel reads the step it runs from the segment's step word on the card
+(``kernels.step_graph``), so its launches replay in a CUDA graph.
 
 ``BathForce`` launches the hand-written kernel (csrc/bath_force.cu) on
 CUDA tensors and runs the plain twins (``pred_plain``, ``corr_plain``,
@@ -31,6 +34,7 @@ import torch
 
 from sclmd_tpu_torch.baths import EBath, PhBath
 from sclmd_tpu_torch.kernels import build
+from sclmd_tpu_torch.kernels.step_graph import StepWord
 from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # bath_force kernel launches (not twin calls)
@@ -48,6 +52,7 @@ def reset_count():
 
 
 profiling.register("launches.K7", __name__, "launches")
+profiling.register("launches.K7_wide", __name__, "launches_wide")
 
 
 SRC_H, SRC_Q = 1, 2    # what a packed operand's later matrices act on
@@ -182,13 +187,22 @@ class _BfArgs(ctypes.Structure):
                 ("out_p", ctypes.c_void_p), ("out_q", ctypes.c_void_p),
                 ("f_out", ctypes.c_void_p), ("cur", ctypes.c_void_p),
                 ("etot", ctypes.c_void_p), ("push", ctypes.c_void_p),
+                ("ps", ctypes.c_void_p), ("qs", ctypes.c_void_p),
+                ("step", ctypes.c_void_p),
                 ("h_stride", ctypes.c_longlong),
                 ("push_stride", ctypes.c_longlong),
                 ("cur_stride", ctypes.c_longlong),
                 ("etot_stride", ctypes.c_longlong),
+                ("ps_stride", ctypes.c_longlong),
+                ("qs_stride", ctypes.c_longlong),
+                ("cur_step", ctypes.c_longlong),
+                ("etot_step", ctypes.c_longlong),
+                ("ps_step", ctypes.c_longlong),
+                ("qs_step", ctypes.c_longlong),
                 ("ntraj", ctypes.c_int), ("nph", ctypes.c_int),
                 ("nb", ctypes.c_int), ("nmd", ctypes.c_int),
-                ("row", ctypes.c_int), ("stage", ctypes.c_int),
+                ("t0", ctypes.c_int), ("step_off", ctypes.c_int),
+                ("mlr", ctypes.c_int), ("stage", ctypes.c_int),
                 ("tt", ctypes.c_int),
                 ("tail_col", ctypes.c_int),
                 ("f_off", ctypes.c_int), ("xs_off", ctypes.c_int),
@@ -297,9 +311,16 @@ def _check_vec(t, ntraj, nph, name):
 
 
 class BathForce:
-    """K7 for one segment of ``ntraj`` trajectories: ``pred`` and
-    ``corr`` run the kernel on CUDA tensors (operands and launch
-    arguments set up once per stage) and the twins on CPU tensors.
+    """K7 for one segment of ``ntraj`` trajectories starting at global
+    step ``t0``: ``pred`` and ``corr`` run the kernel on CUDA tensors
+    (operands and launch arguments set up once per stage) and the twins
+    on CPU tensors. A call names its step ``s`` of the segment: the noise
+    rows are (t0 + s) mod nmd (predictor) and one more (correctors), the
+    ring's head is -s mod mlr and the push row the one before it, and the
+    predictor writes row s of its outputs. On the card the kernel reads
+    s from ``word`` (``kernels.step_graph.StepWord``, made here when not
+    given) plus the launch's offset, so the launches can be replayed in
+    a CUDA graph.
 
     On the card the returned tensors are this object's own buffers, two
     sets per stage used in turn: what a stage returns stays intact
@@ -312,16 +333,18 @@ class BathForce:
     ``tile`` overrides ``tile_size``'s trajectories per CTA."""
 
     def __init__(self, baths, ntraj: int, nph: int, nmd: int, dt: float,
-                 device, tile=None):
+                 device, tile=None, t0: int = 0, word=None):
         if len(baths) > MAX_BATHS:
             raise ValueError(f"bath_force: at most {MAX_BATHS} baths, got "
                              f"{len(baths)}")
         self.ops = pack_operands(baths)
         self.ntraj, self.nph, self.nmd, self.dt = ntraj, nph, nmd, dt
+        self.t0 = int(t0) % nmd
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         if not self.cuda:
             return
+        self.word = StepWord(self.device) if word is None else word
         nsm = torch.cuda.get_device_properties(device).multi_processor_count
         tt = tile_size(ntraj, nsm) if tile is None else tile
         if tt not in TILES:
@@ -343,6 +366,7 @@ class BathForce:
         for stage in (PRED, CORR, LAST):
             a = _BfArgs()
             a.ntraj, a.nph, a.nb, a.nmd = ntraj, nph, len(baths), nmd
+            a.t0, a.step = self.t0, self.word.ptr
             a.tt, a.stage = tt, stage
             a.tail_col = 0 if stage == PRED else 1
             a.dt, a.hdt, a.dt2h = dt, dt / 2.0, dt * dt / 2.0
@@ -394,7 +418,7 @@ class BathForce:
         self.bath_args = [[a.baths[i] for i in range(a.nb)]
                           for a in self.stages]
         self.bound = [[[None, None] for _ in self.ops] for _ in self.stages]
-        self.ring = None
+        self.rows = None
         self.lib = build.load()
         if self.lib.bath_force_threads() != THREADS:
             raise RuntimeError("bath_force: THREADS differs from the "
@@ -408,9 +432,8 @@ class BathForce:
             _check_vec(t, self.ntraj, self.nph, name)
         return ptr
 
-    def _launch(self, stage, x, q, pf, h, h_stride, base, tails, row,
-                mask=None, push=0, push_stride=0, cur=None, etot=None,
-                f_out=None, fbs=None):
+    def _launch(self, stage, x, q, pf, h, h_stride, base, tails, step,
+                mask=None, f_out=None, fbs=None):
         global launches, launches_wide
         a = self.stages[stage]
         a.x, a.q, a.pf = self._vec(x, "x"), self._vec(q, "q"), \
@@ -424,11 +447,7 @@ class BathForce:
         a.out_p = out_p.data_ptr()
         a.out_q = 0 if out_q is None else out_q.data_ptr()
         a.f_out = 0 if f_out is None else self._vec(f_out, "f_out")
-        if stage == PRED:
-            a.push, a.push_stride = push, push_stride
-            a.cur, a.cur_stride = cur.data_ptr(), cur.stride(0)
-            a.etot, a.etot_stride = etot.data_ptr(), etot.stride(0)
-        a.row = row % self.nmd
+        a.step_off = self.word.off(step)
         for i, (b, was) in enumerate(zip(self.bath_args[stage],
                                          self.bound[stage])):
             tail, fb = tails[i], None if fbs is None else fbs[i]
@@ -446,41 +465,76 @@ class BathForce:
             launches_wide += 1
         return out_p, out_q
 
-    def pred(self, p, q, pf, ring, head: int, push: Optional[int], tails,
-             row: int, cur, etot, fbs=None):
-        """Predictor: (pthalf, qtt); writes ``cur`` (traj, nb) and
-        ``etot`` (traj,) (views with any row stride), pushes p onto ring
-        row ``push``, and the per-bath forces into ``fbs`` if given."""
-        if not self.cuda:
-            return pred_plain(p, q, pf, ring, head, push, self.ops, tails,
-                              row, self.dt, cur, etot, fbs)
+    def _bind_rows(self, ring, cur, etot, ps, qs):
+        """The predictor's ring and output arrays, checked and set once
+        for as long as the same tensors are passed."""
+        key = tuple(None if t is None else (t.data_ptr(), t.stride())
+                    for t in (ring, cur, etot, ps, qs))
+        if key == self.rows:
+            return
+        n, nb, nph = self.ntraj, len(self.ops), self.nph
+        if ring.ndim != 3 or ring.shape[0] != n or ring.shape[2] != nph or \
+                not ring.is_contiguous() or ring.dtype != torch.float32:
+            raise ValueError("bath_force: the ring must be a contiguous "
+                             "float32 (traj, mlr, nph) tensor")
+        if (cur.ndim != 3 or cur.shape[0] != n or cur.shape[2] != nb or
+                (nb and cur.stride(2) != 1) or etot.ndim != 2 or
+                etot.shape[0] != n):
+            raise ValueError("bath_force: cur must be (traj, steps, nb) "
+                             "with unit stride along baths, etot (traj, "
+                             "steps)")
+        for t, name in ((ps, "ps"), (qs, "qs")):
+            if t is not None and (t.ndim != 3 or t.shape[0] != n or
+                                  t.shape[2] != nph or t.stride(2) != 1 or
+                                  t.dtype != torch.float32):
+                raise ValueError(f"bath_force: {name} must be float32 "
+                                 "(traj, steps, nph) with unit stride "
+                                 "along DOFs")
+        a = self.stages[PRED]
         mlr = ring.shape[1]
-        if ring is not self.ring:
-            if ring.shape != (self.ntraj, mlr, self.nph) or \
-                    not ring.is_contiguous() or ring.dtype != torch.float32:
-                raise ValueError("bath_force: the ring must be a contiguous "
-                                 "float32 (traj, mlr, nph) tensor")
-            self.ring = ring
-        if (cur.shape != (self.ntraj, len(self.ops)) or
-                etot.shape != (self.ntraj,) or
-                (len(self.ops) and cur.stride(1) != 1)):
-            raise ValueError("bath_force: cur must be (traj, nb) with "
-                             "unit stride along baths, etot (traj,)")
-        row_bytes = 4 * self.nph        # ring rows head and push, by address
-        return self._launch(
-            PRED, p, q, pf, ring.data_ptr() + (head % mlr) * row_bytes,
-            mlr * self.nph, None, tails, row,
-            push=0 if push is None else
-            ring.data_ptr() + (push % mlr) * row_bytes,
-            push_stride=mlr * self.nph, cur=cur, etot=etot, fbs=fbs)
+        a.mlr = mlr
+        a.push = ring.data_ptr()
+        a.push_stride = mlr * nph
+        a.cur, a.cur_stride = cur.data_ptr(), cur.stride(0)
+        a.cur_step = cur.stride(1)
+        a.etot, a.etot_stride = etot.data_ptr(), etot.stride(0)
+        a.etot_step = etot.stride(1)
+        for t, name in ((ps, "ps"), (qs, "qs")):
+            setattr(a, name, 0 if t is None else t.data_ptr())
+            setattr(a, name + "_stride", 0 if t is None else t.stride(0))
+            setattr(a, name + "_step", 0 if t is None else t.stride(1))
+        self.rows = key
 
-    def corr(self, x, qtt, pf2, p, pthalf, tails, row: int, mask=None,
-             f_out=None):
-        """Corrector: (pthalf + dt/2 f, None); with ``mask`` the last
-        stage: (masked p, masked qtt). ``f_out`` receives f."""
+    def pred(self, p, q, pf, ring, step: int, tails, cur, etot, fbs=None,
+             ps=None, qs=None):
+        """Predictor of step ``step``: (pthalf, qtt); writes row ``step``
+        of ``cur`` (traj, steps, nb), ``etot`` (traj, steps) and, if
+        given, of ``ps`` and ``qs`` (traj, steps, nph) (the step's p and
+        q), pushes p onto the ring (traj, mlr, nph), and the per-bath
+        forces into ``fbs`` if given."""
+        mlr = ring.shape[1]
         if not self.cuda:
-            return corr_plain(x, qtt, pf2, p, pthalf, self.ops, tails, row,
-                              self.dt, mask, f_out)
+            head = (-step) % mlr
+            if ps is not None:
+                ps[:, step] = p
+            if qs is not None:
+                qs[:, step] = q
+            return pred_plain(p, q, pf, ring, head, (head - 1) % mlr,
+                              self.ops, tails, (self.t0 + step) % self.nmd,
+                              self.dt, cur[:, step], etot[:, step], fbs)
+        self._bind_rows(ring, cur, etot, ps, qs)
+        return self._launch(PRED, p, q, pf, ring.data_ptr(), mlr * self.nph,
+                            None, tails, step, fbs=fbs)
+
+    def corr(self, x, qtt, pf2, p, pthalf, tails, step: int, mask=None,
+             f_out=None):
+        """Corrector of step ``step``: (pthalf + dt/2 f, None); with
+        ``mask`` the last stage: (masked p, masked qtt). ``f_out``
+        receives f."""
+        if not self.cuda:
+            return corr_plain(x, qtt, pf2, p, pthalf, self.ops, tails,
+                              (self.t0 + step + 1) % self.nmd, self.dt, mask,
+                              f_out)
         return self._launch(LAST if mask is not None else CORR, x, qtt, pf2,
-                            self._vec(p, "p"), self.nph, pthalf, tails, row,
+                            self._vec(p, "p"), self.nph, pthalf, tails, step,
                             mask=mask, f_out=f_out)

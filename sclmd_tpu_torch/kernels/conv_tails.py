@@ -9,7 +9,10 @@ For every non-local phonon bath with ml > 2 and every trajectory t,
 where old[i] is the pre-step velocity history on the bath's DOFs,
 newest first. The integrator keeps that history as a circular ring
 (traj, mlr, nph) with a head index, old[i] = ring[:, (head + i) % mlr],
-so no step shifts the history; both forms read it modulo mlr.
+so no step shifts the history; both forms read it modulo mlr. At step s
+of a segment the head is -s mod mlr; the kernel reads s on the card
+(the segment's step word, ``kernels.step_graph``), so its launch replays
+in a CUDA graph.
 
 ``ConvTails`` launches the hand-written kernel (csrc/conv_tails.cu) on
 CUDA tensors and runs ``conv_tails_plain`` on CPU tensors.
@@ -24,6 +27,7 @@ import torch
 
 from sclmd_tpu_torch.baths import PhBath
 from sclmd_tpu_torch.kernels import build
+from sclmd_tpu_torch.kernels.step_graph import StepWord
 from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # conv_tails kernel launches (not twin calls)
@@ -159,8 +163,9 @@ class _CtBath(ctypes.Structure):
 class _CtArgs(ctypes.Structure):
     _fields_ = [("ring", ctypes.c_void_p), ("desc", ctypes.c_void_p),
                 ("part", ctypes.c_void_p), ("tickets", ctypes.c_void_p),
+                ("step", ctypes.c_void_p),
                 ("ntraj", ctypes.c_int), ("mlr", ctypes.c_int),
-                ("nph", ctypes.c_int), ("head", ctypes.c_int),
+                ("nph", ctypes.c_int), ("step_off", ctypes.c_int),
                 ("nb", ctypes.c_int), ("ncta", ctypes.c_int),
                 ("ntiles", ctypes.c_int), ("nstream", ctypes.c_int),
                 ("tt", ctypes.c_int), ("nstage", ctypes.c_int),
@@ -173,13 +178,15 @@ class _CtArgs(ctypes.Structure):
 class ConvTailsCuda:
     """K6 launches for one segment: the operands, outputs, launch plan
     and partial-sum workspace are set up once; each call passes only the
-    ring's head. The outputs are reused by every call, so a step's tails
+    step s of the segment (the head is -s mod mlr), as an offset to the
+    step word ``word`` (``kernels.step_graph.StepWord``, made here when
+    not given). The outputs are reused by every call, so a step's tails
     live until the next call (the integrator reads them within the
     step). ``nsm`` overrides the card's SM count in the plan,
     ``keep_l2_share`` the share of L2 the slab is asked to stay in."""
 
     def __init__(self, ring: torch.Tensor, baths, nsm=None,
-                 keep_l2_share: float = KEEP_L2_SHARE):
+                 keep_l2_share: float = KEEP_L2_SHARE, word=None):
         dev = ring.device
         if dev.type != "cuda":
             raise ValueError("conv_tails: the kernel takes CUDA tensors")
@@ -203,8 +210,10 @@ class ConvTailsCuda:
         tickets = torch.zeros((plan["ntiles"], len(plan["streams"])),
                               dtype=torch.int32, device=dev)
         self._keep = [ring, desc, part, tickets]
+        self.word = StepWord(dev) if word is None else word
         a = _CtArgs()
         a.ring, a.ntraj, a.mlr, a.nph = ring.data_ptr(), ntraj, mlr, nph
+        a.step = self.word.ptr
         a.desc, a.part, a.tickets = (desc.data_ptr(), part.data_ptr(),
                                      tickets.data_ptr())
         a.nb, a.ncta, a.nstream = len(baths), ncta, len(plan["streams"])
@@ -237,12 +246,11 @@ class ConvTailsCuda:
             a.baths[i] = _CtBath(K.data_ptr(), cids.data_ptr(),
                                  out.data_ptr(), nc, ml)
         self.args = a
-        self.mlr = mlr
         self.device = dev
 
-    def __call__(self, head: int) -> list:
+    def __call__(self, step: int) -> list:
         global launches
-        self.args.head = head % self.mlr
+        self.args.step_off = self.word.off(step)
         rc = self.lib.conv_tails_f32(ctypes.byref(self.args),
                                      build.current_stream(self.device))
         build.check(rc, "conv_tails")
@@ -250,9 +258,11 @@ class ConvTailsCuda:
         return self.outs
 
 
-def conv_tails_plan(ring: torch.Tensor, baths):
-    """A callable ``head -> [tails per bath]`` for one segment: the CUDA
-    kernel for a CUDA ring, the plain twin for a CPU ring."""
+def conv_tails_plan(ring: torch.Tensor, baths, word=None):
+    """A callable ``step -> [tails per bath]`` for one segment (the ring's
+    head at step s is -s mod mlr): the CUDA kernel for a CUDA ring, on
+    the step word ``word``, the plain twin for a CPU ring."""
     if ring.device.type == "cpu":
-        return lambda head: conv_tails_plain(ring, head, baths)
-    return ConvTailsCuda(ring, baths)
+        mlr = ring.shape[1]
+        return lambda step: conv_tails_plain(ring, (-step) % mlr, baths)
+    return ConvTailsCuda(ring, baths, word=word)

@@ -12,7 +12,10 @@ integrators advance the whole batch:
   junction kernel K5, ``ch_force``, twice a step) or the harmonic
   ``-dyn q``, a ``torch.matmul``. The velocity history
   is a circular ring with a head index, turned back into the newest-first
-  ``phis`` only at the segment's end.
+  ``phis`` only at the segment's end. On the card the steps after the
+  first run as a CUDA graph of ``kernels.step_graph.GRAPH_STEPS``
+  steps, captured once a segment and replayed (``graph_plan`` says
+  where).
 * ``run_segment_blocked``, the blocked memory-kernel convolution
   (non-local phonon baths only): per block of ``block`` steps kernel K2
   (``block_corr``) once per bath for the pre-block tails, then kernel K1
@@ -59,6 +62,7 @@ import torch
 from sclmd_tpu_torch import resolve_device
 from sclmd_tpu_torch import units as U
 from sclmd_tpu_torch.baths import PhBath
+from sclmd_tpu_torch.kernels import step_graph
 from sclmd_tpu_torch.kernels.bath_force import BathForce
 from sclmd_tpu_torch.kernels.conv_tails import conv_tails_plan, tail_baths
 from sclmd_tpu_torch.kernels.gle_block import (BathOperands, gle_block,
@@ -369,6 +373,24 @@ def _check_noise(system: GLESystem, ntraj: int, who: str):
                 f"{ntraj} trajectories")
 
 
+def graph_plan(system: GLESystem, state: MDState, nsteps: int) -> tuple:
+    """(lead, replays, tail) of ``run_segment``'s steps
+    (``kernels.step_graph.group_plan``), or (nsteps, 0, 0): every step
+    eager. The steps replay as a CUDA graph only where the code can see
+    that a replay does what the eager steps do: on the card, with no
+    per-step write left on the host (``cf_fn``, ``savef``'s scatter) and
+    with the harmonic ``torch.mm`` or a force driver that declares itself
+    capturable (``capturable``: its card force launches kernels only, no
+    host sync); and where the segment holds a whole group after its
+    first step."""
+    fn = system.force_fn
+    if (state.p.device.type != "cuda" or system.cf_fn is not None or
+            system.savef or (fn is not None and not getattr(
+                getattr(fn, "__self__", None), "capturable", False))):
+        return nsteps, 0, 0
+    return step_graph.group_plan(nsteps)
+
+
 def run_segment(system: GLESystem, state: MDState, nsteps: int,
                 t0: int = 0):
     """Advance the batch ``nsteps`` plain GLE steps; returns
@@ -383,8 +405,12 @@ def run_segment(system: GLESystem, state: MDState, nsteps: int,
     ``t0`` is the segment's global step offset: step s reads noise row
     (t0+s) mod nmd for the predictor and (t0+s+1) mod nmd for the
     correctors, so a segment longer than nmd wraps. The velocity history
-    is a ring: old[i] = ring[:, (head+i) % ml], and each step's push
-    writes one row instead of shifting all of them.
+    is a ring: old[i] = ring[:, (head+i) % ml] with head = -s mod ml at
+    step s, and each step's push writes one row instead of shifting all
+    of them. On the card the kernels read s from a step word
+    (``kernels.step_graph``), and where ``graph_plan`` allows it the
+    steps after the first run as a captured CUDA graph replayed in
+    groups; the outputs are the same bits either way.
     """
     ntraj, nph = state.p.shape
     _check_noise(system, ntraj, "run_segment")
@@ -395,12 +421,15 @@ def run_segment(system: GLESystem, state: MDState, nsteps: int,
         return state, {"etot": state.p.new_zeros((ntraj, 0)),
                        "cur": state.p.new_zeros((ntraj, 0, nb))}
 
+    plan = graph_plan(system, state, nsteps)
+    word = step_graph.StepWord(dev, base=plan[0] if plan[1] else 0) \
+        if dev.type == "cuda" else None
     ring = state.phis.contiguous().clone()
-    mlr = ring.shape[1]
     tidx = tail_baths(system.baths)
-    tails_of = conv_tails_plan(ring, [system.baths[i] for i in tidx]) \
-        if tidx else None
-    force = BathForce(system.baths, ntraj, nph, nmd, dt, dev)
+    tails_of = conv_tails_plan(ring, [system.baths[i] for i in tidx],
+                               word) if tidx else None
+    force = BathForce(system.baths, ntraj, nph, nmd, dt, dev, t0=t0,
+                      word=word)
 
     def buf(*shape):
         return torch.empty((ntraj, nsteps) + shape, dtype=dtype, device=dev)
@@ -423,34 +452,30 @@ def run_segment(system: GLESystem, state: MDState, nsteps: int,
     p, q = state.p.contiguous(), state.q.contiguous()
     qprev = state.qhis[:, 0]
     tails = [None] * nb
-    head = 0
-    for s in range(nsteps):
-        r0, r1 = (t0 + s) % nmd, (t0 + s + 1) % nmd
-        if system.savep:
-            ys["ps"][:, s] = p
-        if system.saveq:
-            ys["qs"][:, s] = q
+
+    def step(s):
+        nonlocal p, q, qprev
         if system.cf_fn is not None:
             ys["cf"][:, s] = system.cf_fn(q) + matvec(system.dyn, q)
         if tails_of is not None:
-            for i, tl in zip(tidx, tails_of(head)):
+            for i, tl in zip(tidx, tails_of(s)):
                 tails[i] = tl
-        push = (head - 1) % mlr
-        pthalf, qtt = force.pred(p, q, system.potential_force(q), ring,
-                                 head, push, tails, r0, ys["cur"][:, s],
-                                 ys["etot"][:, s], fbs)
+        pthalf, qtt = force.pred(p, q, system.potential_force(q), ring, s,
+                                 tails, ys["cur"], ys["etot"], fbs,
+                                 ps=ys.get("ps"), qs=ys.get("qs"))
         pf2 = system.potential_force(qtt)
-        ptt1, _ = force.corr(pthalf, qtt, pf2, p, pthalf, tails, r1)
-        pnew, qnew = force.corr(ptt1, qtt, pf2, p, pthalf, tails, r1,
+        ptt1, _ = force.corr(pthalf, qtt, pf2, p, pthalf, tails, s)
+        pnew, qnew = force.corr(ptt1, qtt, pf2, p, pthalf, tails, s,
                                 mask=system.mask, f_out=f_last)
         if system.savef:
             ys["f"][:, s] = f_last
             for i, b in enumerate(system.baths):
                 ys["fbaths"][:, s, i, b.cols] = fbs[i]
-        qprev, p, q, head = q, pnew, qnew, push
+        qprev, p, q = q, pnew, qnew
 
+    step_graph.run_steps(step, nsteps, plan, word, dev)
     final = MDState(t=state.t + nsteps, p=p, q=q,
-                    phis=torch.roll(ring, -head, dims=1),
+                    phis=torch.roll(ring, nsteps % ring.shape[1], dims=1),
                     qhis=qprev.unsqueeze(1))
     return final, ys
 

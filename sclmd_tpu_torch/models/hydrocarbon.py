@@ -215,6 +215,11 @@ class CHDriver(DriverShell):
     tensors it is the autograd twin. A float64 many-body run is CPU-only:
     a float64 CUDA tensor raises."""
 
+    # the card's force_torch launches K5 and allocates its output through
+    # the caching allocator, with no host sync: md.run_segment may replay
+    # it inside a CUDA graph (md.graph_plan)
+    capturable = True
+
     def __init__(self, axyz, cell=None, max_nnei=None, cutoff_skin=0.4,
                  dtype=torch.float64, morse=None, k_bend=CH_BEND_K,
                  k_oop=CH_OOP_K, tersoff_params=None, device=None):

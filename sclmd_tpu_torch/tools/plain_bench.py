@@ -1,7 +1,7 @@
 """Times of the plain GLE step's kernels and entry points on the card.
 
     python -m sclmd_tpu_torch.tools.plain_bench [--label NAME] [--sweep]
-        [--workload plain|flagship_mb]
+        [--workload plain|flagship_mb|graph_sweep]
 
 Needs a CUDA card. Measures the package it is imported from, so two
 versions are compared by running this file from the root of each
@@ -54,6 +54,14 @@ C/H force driver through ``AddPotential``):
 * ``flagship_mb_traj_steps_per_s``: ``RunEnsemble`` at 128 and 1024
   trajectories, five calls each after a warm-up, and beside it
   ``flagship_traj_steps_per_s``, the harmonic flagship in the same call.
+
+``--workload graph_sweep`` times one segment of ``md.run_segment``
+(``host_s``, ``wall_s`` as above) eagerly and for each group length of
+``kernels.step_graph`` in ``GRAPH_SWEEP`` (``GRAPH_STEPS`` set for the
+run): ``run_segment``, the primary chain's 1024 steps at one trajectory
+(a segment of the benchmark's ``md.Run``), and ``flagship_mb_segment``,
+the many-body flagship's 1024 steps at the chunk size of its
+1024-trajectory run.
 
 ``--sweep`` with ``flagship_mb`` adds ``k5_sweep``: K5's device time at
 128 and at the 1024 chunk for each number of threads per trajectory
@@ -157,11 +165,13 @@ class K7Case:
                       for b in baths]
         self.mask = torch.ones(nph, device=dev)
         self.mask[: nph // 10] = 0.0
-        self.cur = torch.zeros((ntraj, len(baths)), device=dev)
-        self.etot = torch.zeros((ntraj,), device=dev)
+        self.cur = torch.zeros((ntraj, 1, len(baths)), device=dev)
+        self.etot = torch.zeros((ntraj, 1), device=dev)
         self.dt, self.nmd, self.ntraj, self.nph = dt, nmd, ntraj, nph
+        # step 0 of a segment from global step 3: ring head 0, push row
+        # mlr - 1, noise rows 3 and 4
         self.force = K7.BathForce(self.baths, ntraj, nph, nmd, dt, dev,
-                                  **force_kw)
+                                  t0=3, **force_kw)
         # a predictor's outputs, for the correctors' inputs
         self.ph, self.qt = (t.clone() for t in self.stage_call("pred", True))
 
@@ -172,15 +182,15 @@ class K7Case:
         f, ops = self.force, self.force.ops
         if stage == "pred":
             if kernel:
-                return f.pred(self.p, self.q, self.pf, self.ring, head, push,
-                              self.tails, 3, self.cur, self.etot)
+                return f.pred(self.p, self.q, self.pf, self.ring, 0,
+                              self.tails, self.cur, self.etot)
             return K7.pred_plain(self.p, self.q, self.pf, self.ring, head,
-                                 push, ops, self.tails, 3, self.dt, self.cur,
-                                 self.etot)
+                                 push, ops, self.tails, 3, self.dt,
+                                 self.cur[:, 0], self.etot[:, 0])
         mask = self.mask if stage == "last" else None
         if kernel:
             return f.corr(self.x, self.qt, self.pf2, self.p, self.ph,
-                          self.tails, 4, mask=mask)
+                          self.tails, 0, mask=mask)
         return K7.corr_plain(self.x, self.qt, self.pf2, self.p, self.ph, ops,
                              self.tails, 4, self.dt, mask)
 
@@ -245,6 +255,33 @@ def ensemble_rates(r, nsteps, sizes=(128, 1024), reps=5) -> dict:
     return out
 
 
+GRAPH_SWEEP = (2, 4, 8, 16, 32, 64)
+
+
+def graph_sweep(dev, res):
+    """The ``graph_sweep`` workload, into ``res``."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools.primary import NMD, primary_runner
+
+    r = primary_runner(torch.float32, dev, tempfile.mkdtemp())
+    fr = F.flagship_runner(torch.float32, dev, tempfile.mkdtemp(),
+                           many_body=True)
+    chunk = max(F.chunk_sizes(fr._build_system(), 1024))
+    keep, out = SG.GRAPH_STEPS, {}
+    try:
+        for g in ("eager",) + GRAPH_SWEEP:
+            # a group longer than any segment: every step eager
+            SG.GRAPH_STEPS = 1 << 30 if g == "eager" else g
+            out[g] = {"run_segment": segment_times(r, 1, NMD // 2),
+                      "flagship_mb_segment": segment_times(fr, chunk,
+                                                           F.NMD)}
+    finally:
+        SG.GRAPH_STEPS = keep
+    res["graph_sweep"] = out
+    res["flagship_chunk"] = chunk
+
+
 K5_SWEEP_THREADS = (128, 256, 384, 512, 768)
 K5_SWEEP_GROUPS = (1, 2, 4, 6, 8)
 
@@ -294,7 +331,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="tree")
     ap.add_argument("--workload", default="plain",
-                    choices=["plain", "flagship_mb"])
+                    choices=["plain", "flagship_mb", "graph_sweep"])
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--no-e2e", action="store_true",
                     help="kernel times only")
@@ -316,6 +353,10 @@ def main(argv=None):
         many_body(dev, res, args.sweep)
         print(json.dumps(res), flush=True)
         return
+    if args.workload == "graph_sweep":
+        graph_sweep(dev, res)
+        print(json.dumps(res), flush=True)
+        return
     res.update(k7={}, k6={})
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -326,11 +367,11 @@ def main(argv=None):
             lambda: lib.bath_force_noop(stream)).values())
 
     pb = primary_baths(torch.float32, dev)
-    for n, head in ((1, 377), (37, 5)):
+    for n, step in ((1, 623), (37, 995)):
         ring = 0.05 * torch.randn((n, pb[0].ml, NPH), device=dev,
                                   generator=gen)
         k6 = K6.ConvTailsCuda(ring, pb)
-        res["k6"][n] = times(lambda: k6(head))
+        res["k6"][n] = times(lambda: k6(step))
 
     for name, c in k7_cases(dev).items():
         res["k7"][name] = {s: times(lambda: c.stage_call(s, True))
@@ -350,7 +391,7 @@ def main(argv=None):
         for share in (0.0, 0.4, 0.55, 0.7, 0.85, 1.0):
             k6 = K6.ConvTailsCuda(ring, pb, keep_l2_share=share)
             res["k6_keep_sweep"][share] = sum(device_us(
-                lambda: k6(377), reps=200).values())
+                lambda: k6(623), reps=200).values())
 
     if not args.no_e2e:
         r = primary_runner(torch.float32, dev, tempfile.mkdtemp())

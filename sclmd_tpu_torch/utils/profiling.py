@@ -43,10 +43,13 @@ over chunks; ``syncs``: the runners' reads of device values, each
 ``md._host`` copy and finite flag; ``files`` and
 ``bytes_written``: kappa, power and structure files and the MD{j}.npz /
 MDE.npz checkpoints; ``library_builds``: compilations of the kernel
-library), and the kernels' launch counters, each a plain integer global
+library; ``steps_graphed``: plain steps run by replaying a CUDA graph,
+``graph_captures``: the graphs captured, ``kernels.step_graph``), and
+the kernels' launch counters, each a plain integer global
 of its module registered once at import (``register``):
 ``launches.K7`` is ``kernels.bath_force.launches`` (``launches.K9`` and
-``launches.K10`` count evaluations, three kernels each).
+``launches.K10`` count evaluations, three kernels each). They count
+kernel executions: a graph replay adds the launches it holds.
 
 Reports. ``md.RunEnsemble`` and ``md.Run`` each run inside ``call``,
 which opens one ``Report``: the entry, its wall seconds, ``{span:
@@ -97,7 +100,8 @@ _process = Report("process")
 _open = []                              # reports of the calls under way
 _ring = collections.deque(maxlen=RING)
 _counts = dict.fromkeys(("steps", "syncs", "files", "bytes_written",
-                         "library_builds"), 0)
+                         "library_builds", "steps_graphed",
+                         "graph_captures"), 0)
 _registered = {}                        # name -> (module name, attribute)
 
 
@@ -112,12 +116,22 @@ def register(name: str, module: str, attr: str):
     _registered[name] = (module, attr)
 
 
+def launch_counts() -> dict:
+    """The registered kernel counters (``register``) now."""
+    return {name: getattr(sys.modules[mod], attr)
+            for name, (mod, attr) in _registered.items()}
+
+
+def set_launch_counts(values: dict):
+    """Set registered kernel counters: ``{name: value}``."""
+    for name, v in values.items():
+        mod, attr = _registered[name]
+        setattr(sys.modules[mod], attr, v)
+
+
 def counters() -> dict:
     """Every counter's value now."""
-    out = dict(_counts)
-    for name, (mod, attr) in _registered.items():
-        out[name] = getattr(sys.modules[mod], attr)
-    return out
+    return {**_counts, **launch_counts()}
 
 
 def reports() -> list:

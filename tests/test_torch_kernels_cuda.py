@@ -249,7 +249,7 @@ def test_conv_tails_matches_twin(cuda, ntraj, mls, head, wide, nsm):
     if nsm is not None:
         longest = max(r1 - r0 for _, _, _, r0, r1, _, _, _ in k6.plan["desc"])
         assert longest > k6.plan["nstage"]
-    got = [t.clone() for t in k6(head)]
+    got = [t.clone() for t in k6((-head) % ring.shape[1])]
     want = K6.conv_tails_plain(ring, head, baths)
     ref64 = K6.conv_tails_plain(
         ring.double().cpu(), head,
@@ -324,34 +324,42 @@ def _k7_against_twin(cuda, kinds, ntraj, sets=DISJOINT, tile=None, nph=24,
     mlr = max(b.ml for b in baths) + 1
     ring = rnd(ntraj, mlr, nph)
     tails = [rnd(ntraj, b.nc, 2) if b.ml > 2 else None for b in baths]
-    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda, tile=tile)
+    # step s of a segment: ring head -s mod mlr = 1, push row 0, noise
+    # rows 7 and 8; the outputs' rows have strides of their own
+    s = mlr - 1
+    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda, tile=tile,
+                         t0=7 - s)
     if unstage:
         for a in force.stages:
             a.staged = 0
     res = {}
     for name, run in (("kernel", force), ("twin", None)):
         rg = ring.clone()
-        cur = torch.zeros((ntraj, 3, len(baths)), device=cuda)[:, 1]
-        etot = torch.zeros((ntraj, 5), device=cuda)[:, 2]
+        cur = torch.zeros((ntraj, s + 3, len(baths)), device=cuda)
+        etot = torch.zeros((ntraj, s + 5), device=cuda)
+        ps, qs = (torch.zeros((ntraj, s + 2, nph), device=cuda)
+                  for _ in range(2))
         fbs = [torch.zeros((ntraj, b.nc), device=cuda) for b in baths]
         f_out = torch.zeros((ntraj, nph), device=cuda)
         if run is not None:
             before = K7.launches
-            ph, qt = run.pred(p, q, pf, rg, 1, 0, tails, 7, cur, etot, fbs)
-            pc, _ = run.corr(x, qt, pf2, p, ph, tails, 8)
-            pl, ql = run.corr(x, qt, pf2, p, ph, tails, 8, mask=mask,
+            ph, qt = run.pred(p, q, pf, rg, s, tails, cur, etot, fbs,
+                              ps=ps, qs=qs)
+            pc, _ = run.corr(x, qt, pf2, p, ph, tails, s)
+            pl, ql = run.corr(x, qt, pf2, p, ph, tails, s, mask=mask,
                               f_out=f_out)
             torch.cuda.synchronize()
             assert K7.launches == before + 3
         else:
             ph, qt = K7.pred_plain(p, q, pf, rg, 1, 0, force.ops, tails, 7,
-                                   0.4, cur, etot, fbs)
+                                   0.4, cur[:, s], etot[:, s], fbs)
+            ps[:, s], qs[:, s] = p, q
             pc, _ = K7.corr_plain(x, qt, pf2, p, ph, force.ops, tails, 8,
                                   0.4)
             pl, ql = K7.corr_plain(x, qt, pf2, p, ph, force.ops, tails, 8,
                                    0.4, mask, f_out)
         res[name] = dict(ph=ph, qt=qt, pc=pc, pl=pl, ql=ql, cur=cur,
-                         etot=etot, f=f_out, ring=rg,
+                         etot=etot, ps=ps, qs=qs, f=f_out, ring=rg,
                          **{f"fb{i}": fb for i, fb in enumerate(fbs)})
     for k, v in res["twin"].items():
         assert _rel(res["kernel"][k], v) < 1e-5, k
@@ -433,15 +441,15 @@ def test_bath_force_outputs_outlive_two_stages(cuda):
                 for _ in range(3))
     mask = torch.ones(nph, device=cuda)
     ring = torch.randn((ntraj, 2, nph), device=cuda, generator=gen)
-    cur = torch.zeros((ntraj, 2), device=cuda)
-    etot = torch.zeros((ntraj,), device=cuda)
-    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda)
+    cur = torch.zeros((ntraj, 1, 2), device=cuda)
+    etot = torch.zeros((ntraj, 1), device=cuda)
+    force = K7.BathForce(baths, ntraj, nph, nmd, 0.4, cuda, t0=3)
     tails = [None, None]
 
     def step(p, q):
-        ph, qt = force.pred(p, q, pf, ring, 0, None, tails, 3, cur, etot)
-        pc, _ = force.corr(ph, qt, pf, p, ph, tails, 4)
-        return (ph, qt), force.corr(pc, qt, pf, p, ph, tails, 4, mask=mask)
+        ph, qt = force.pred(p, q, pf, ring, 0, tails, cur, etot)
+        pc, _ = force.corr(ph, qt, pf, p, ph, tails, 0)
+        return (ph, qt), force.corr(pc, qt, pf, p, ph, tails, 0, mask=mask)
 
     (ph, qt), (p1, q1) = step(p, q)
     kept = [t.clone() for t in (ph, qt, p1, q1)]
@@ -825,6 +833,88 @@ def test_run_segment_with_ch_driver_card_against_cpu(cuda):
         out.append((fin.p, fin.q, ys["cur"], ys["etot"]))
     for a, b in zip(*out):
         assert _rel(a, b) < 1e-4
+
+
+# --- the plain step replayed as a CUDA graph (kernels.step_graph) -----------
+def _graph_against_eager(monkeypatch, system, st, nsteps, t0, per_step):
+    """``run_segment`` graphed and eagerly on the same inputs: the same
+    bits in every output and in the final state, and each launch
+    counter's change (``per_step``: kernel -> launches a step) equal to
+    the kernels run, as ``steps_graphed`` and ``graph_captures`` are."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.utils import profiling as P
+    runs = []
+    for graphed in (True, False):
+        with monkeypatch.context() as m:
+            if not graphed:
+                m.setattr(TMD, "graph_plan", lambda system, state, n:
+                          (n, 0, 0))
+            before = P.counters()
+            fin, ys = TMD.run_segment(system, st, nsteps, t0=t0)
+            torch.cuda.synchronize()
+            after = P.counters()
+        runs.append((fin, ys, {k: v - before[k] for k, v in after.items()}))
+    (fg, yg, cg), (fe, ye, ce) = runs
+    for k in ("t", "p", "q", "phis", "qhis"):
+        assert torch.equal(getattr(fg, k), getattr(fe, k)), k
+    assert set(yg) == set(ye)
+    for k in ye:
+        assert torch.equal(yg[k], ye[k]), k
+    _, replays, _ = SG.group_plan(nsteps)
+    assert replays >= 2
+    assert cg["steps_graphed"] == replays * SG.GRAPH_STEPS
+    assert cg["graph_captures"] == 1
+    assert ce["steps_graphed"] == ce["graph_captures"] == 0
+    for name, n in per_step.items():
+        assert cg[name] == ce[name] == n * nsteps, name
+    return yg
+
+
+def test_run_segment_graph_matches_eager_chain(cuda, monkeypatch):
+    """One chain trajectory, ``ps`` and ``qs`` written by K7: from t0 =
+    120 of nmd 128 (the noise rows wrap), more steps than twice the ring
+    of 40 rows, whole groups and a remainder; a segment with no whole
+    group after its first step runs eagerly."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.utils import profiling as P
+    G = SG.GRAPH_STEPS
+    system = _system(cuda, torch.float32, 1).replace(savep=True, saveq=True)
+    rng = np.random.default_rng(8)
+    st = TMD.initial_state(system, 1, dtype=torch.float32).replace(
+        p=torch.as_tensor(0.05 * rng.standard_normal((1, 36)),
+                          dtype=torch.float32, device=cuda),
+        phis=torch.as_tensor(0.05 * rng.standard_normal((1, 40, 36)),
+                             dtype=torch.float32, device=cuda))
+    nsteps = 1 + G * -(-90 // G) + 3
+    ys = _graph_against_eager(monkeypatch, system, st, nsteps, 120,
+                              {"launches.K6": 1, "launches.K7": 3})
+    assert bool(torch.isfinite(ys["ps"]).all())
+    assert not torch.equal(ys["ps"][:, 1], ys["ps"][:, 2])
+    before = P.counters()["graph_captures"]
+    TMD.run_segment(system, st, G, t0=3)
+    assert P.counters()["graph_captures"] == before
+
+
+def test_run_segment_graph_matches_eager_ch_flagship(cuda, monkeypatch,
+                                                     tmp_path):
+    """The many-body C/H flagship (K5 twice a step, K7 three times, two
+    electron baths, a constraint) at 64 trajectories over two whole
+    groups and three steps."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.tools import flagship as F
+    r = F.flagship_runner(torch.float32, cuda, str(tmp_path), nmd=256,
+                          many_body=True)
+    system = r._build_system()
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    system = system.replace(baths=tuple(
+        b.replace(noise=0.01 * torch.randn((64, 256, b.nc), device=cuda,
+                                           generator=gen))
+        for b in system.baths))
+    st = TMD.initial_state(system, 64).replace(
+        p=0.02 * torch.randn((64, system.nph), device=cuda, generator=gen)
+        * system.mask)
+    _graph_against_eager(monkeypatch, system, st, 2 * SG.GRAPH_STEPS + 3,
+                         250, {"launches.K5": 2, "launches.K7": 3})
 
 
 # --- K3 and K3b: noise synthesis with the in-kernel Philox draw -------------

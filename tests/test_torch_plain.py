@@ -241,15 +241,17 @@ def test_zero_steps_returns_state():
 # --- the kernels' plain twins against the JAX force rules --------------------
 @pytest.mark.parametrize("ml", [3, 12])
 def test_conv_tails_twin_matches_step_plan(ml):
-    """K6's twin reads the history out of a ring at any head, as
-    ``PhBath.step_plan`` reads the newest-first history."""
+    """K6's twin reads the history out of a ring at any head (step s of a
+    segment: head -s mod mlr), as ``PhBath.step_plan`` reads the
+    newest-first history."""
     jb = _bath("phonon", [2, 0, 5, 4], NMD, ml=ml)
     tb = from_jax_bath(jb, device="cpu")
     rng = np.random.default_rng(ml)
     mlr = ml + 3
     ntraj, head = 3, 5
     ring = rng.normal(size=(ntraj, mlr, 8))
-    got = K6.conv_tails_plan(torch.as_tensor(ring), [tb])(head)[0]
+    step = (-head) % mlr + 2 * mlr
+    got = K6.conv_tails_plan(torch.as_tensor(ring), [tb])(step)[0]
     assert got.shape == (ntraj, 4, 2)
     for k in range(ntraj):
         old = ring[k][(head + np.arange(mlr)) % mlr][:ml][:, jb.cids]
@@ -279,23 +281,29 @@ def test_bath_force_twin_matches_force_rules(kind, ml):
     tail = rng.normal(size=(ntraj, 4, 2)) if ml > 2 else None
     mask = np.ones(nph)
     mask[[3, 9]] = 0.0
-    force = K7.BathForce([tb], ntraj, nph, nmd, DT, "cpu")
-    cur = torch.zeros((ntraj, 1), dtype=torch.float64)
-    etot = torch.zeros((ntraj,), dtype=torch.float64)
+    # step s of a segment starting at t0: ring head -s mod mlr = 1, push
+    # row 0, noise rows t0 + s = 5 and 6
+    head, row, s = 1, 5, mlr - 1
+    force = K7.BathForce([tb], ntraj, nph, nmd, DT, "cpu", t0=row - s)
+    cur = torch.zeros((ntraj, s + 1, 1), dtype=torch.float64)
+    etot = torch.zeros((ntraj, s + 1), dtype=torch.float64)
+    ps, qs = (torch.zeros((ntraj, s + 1, nph), dtype=torch.float64)
+              for _ in range(2))
     fbs = [torch.zeros((ntraj, 4), dtype=torch.float64)]
     ring_t = torch.as_tensor(ring.copy())
-    head, row = 1, 5
     tails = [None if tail is None else torch.as_tensor(tail)]
     pthalf, qtt = force.pred(torch.as_tensor(p), torch.as_tensor(q),
-                             torch.as_tensor(pf), ring_t, head, 0, tails,
-                             row, cur, etot, fbs)
+                             torch.as_tensor(pf), ring_t, s, tails, cur,
+                             etot, fbs, ps=ps, qs=qs)
     pc, none = force.corr(torch.as_tensor(x), qtt, torch.as_tensor(pf2),
-                          torch.as_tensor(p), pthalf, tails, row + 1)
+                          torch.as_tensor(p), pthalf, tails, s)
     f_out = torch.zeros((ntraj, nph), dtype=torch.float64)
     pl, ql = force.corr(torch.as_tensor(x), qtt, torch.as_tensor(pf2),
-                        torch.as_tensor(p), pthalf, tails, row + 1,
+                        torch.as_tensor(p), pthalf, tails, s,
                         mask=torch.as_tensor(mask), f_out=f_out)
     assert none is None
+    np.testing.assert_array_equal(ps[:, s].numpy(), p)
+    np.testing.assert_array_equal(qs[:, s].numpy(), q)
     c = np.asarray(cats)
     for k in range(ntraj):
         plan = None if tail is None else jnp.asarray(tail[k])
@@ -306,9 +314,9 @@ def test_bath_force_twin_matches_force_rules(kind, ml):
         f = pf[k].copy()
         f[c] += fb
         np.testing.assert_allclose(fbs[0][k].numpy(), fb, rtol=1e-12)
-        np.testing.assert_allclose(cur[k, 0].item(), fb @ p[k, c],
+        np.testing.assert_allclose(cur[k, s, 0].item(), fb @ p[k, c],
                                    rtol=1e-12)
-        np.testing.assert_allclose(etot[k].item(), 0.5 * p[k] @ p[k],
+        np.testing.assert_allclose(etot[k, s].item(), 0.5 * p[k] @ p[k],
                                    rtol=1e-12)
         np.testing.assert_allclose(pthalf[k].numpy(), p[k] + f * DT / 2,
                                    rtol=1e-12)

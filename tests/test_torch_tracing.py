@@ -237,6 +237,7 @@ REGISTRY = [
     ("launches.K5", "ch_force", "launches"),
     ("launches.K6", "conv_tails", "launches"),
     ("launches.K7", "bath_force", "launches"),
+    ("launches.K7_wide", "bath_force", "launches_wide"),
     ("launches.K8", "ch_force", "launches_tersoff"),
     ("launches.K9", "sw_force", "launches"),
     ("launches.K10", "eam_force", "launches"),
