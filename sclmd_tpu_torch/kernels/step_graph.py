@@ -2,12 +2,12 @@
 
 A plain GLE step launches K6 once, K7 three times and the potential
 force twice (``torch.mm`` for a harmonic system, K5 twice for a
-``CHDriver``). The card's work is short (about 52 us a step at one
-primary trajectory) and the host's Python per launch is long (about 100
-to 160 us a step on the H100's host), so launched one by one the card
-waits on the host. Here a segment captures ``GRAPH_STEPS`` steps once as
-a CUDA graph and replays it; every kernel in it stays the hand-written
-one.
+``CHDriver``, K9 twice for an ``SWDriver``). The card's work is short
+(about 52 us a step at one primary trajectory) and the host's Python per
+launch is long (about 100 to 160 us a step on the H100's host), so
+launched one by one the card waits on the host. Here a segment captures
+``GRAPH_STEPS`` steps once as a CUDA graph and replays it; every kernel
+in it stays the hand-written one.
 
 The step index lives on the card (``StepWord``): K6 and K7 read one
 int32 word and add the launch's own offset, and derive from that step

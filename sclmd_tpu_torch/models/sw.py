@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from sclmd_tpu_torch.models.driver import Consts, DriverShell
+from sclmd_tpu_torch.utils import profiling
 
 # published parameter sets (public constants); energies eV, lengths Ang
 SW_PARAMS = {
@@ -142,6 +143,12 @@ class SWDriver(DriverShell):
     integers take powf in the kernel); float64 keeps the autograd of the
     energy on either device."""
 
+    # the card's force_torch launches K9 (the slot transpose, the centre
+    # pass and the gather) into scratch made at the first call and kept,
+    # with its output from the caching allocator and no host sync:
+    # md.run_segment may replay it inside a CUDA graph (md.graph_plan)
+    capturable = True
+
     def __init__(self, axyz, cutoff_skin=0.4, max_nnei=None, cell=None,
                  element=None, dtype=torch.float64, params=None,
                  device=None):
@@ -160,10 +167,11 @@ class SWDriver(DriverShell):
                 "params=")
         x0 = np.array([a[1:] for a in axyz], dtype=float)
         rcut = table["a"] * table["sigma"]
-        nbr, mask = build_neighbors(x0, rcut, max_nnei, cell=cell,
-                                    skin=cutoff_skin)
-        efn = sw_energy(element, nbr, mask, cell=cell, params=table)
-        self._attach(efn, axyz, dtype, device)
-        if dtype == torch.float32:
-            from sclmd_tpu_torch.kernels.sw_force import SWForce
-            self._use_kernel(SWForce(efn.terms, self._drv))
+        with profiling.span("setup/driver"):
+            nbr, mask = build_neighbors(x0, rcut, max_nnei, cell=cell,
+                                        skin=cutoff_skin)
+            efn = sw_energy(element, nbr, mask, cell=cell, params=table)
+            self._attach(efn, axyz, dtype, device)
+            if dtype == torch.float32:
+                from sclmd_tpu_torch.kernels.sw_force import SWForce
+                self._use_kernel(SWForce(efn.terms, self._drv))

@@ -34,7 +34,8 @@ read-back, a batch of files, a checkpoint), never a step:
                          the last checkpoint
     setup/library        loading (or building) the kernel library
     setup/bath           a bath's PSD factorisation
-    setup/driver         CHDriver's tables and kernel pack
+    setup/driver         CHDriver's and SWDriver's tables and kernel
+                         pack
     setup/thermal_start  the eigh of the dynamical matrix (set_dyn)
 
 Counters. ``counters()`` reads them all: the program's own, added with

@@ -145,9 +145,14 @@ def test_tracer_report_and_json(tmp_path):
         assert set(d) == {"outer", "outer/inner", "wrapped"}
         assert d["outer/inner"]["calls"] == 2
         assert set(d["outer"]) == {"calls", "seconds"}
-        reports.append(tr.report().splitlines())
+        reports.append(tr.report(sort_by_time=False).splitlines())
+        # sorted by time: each row's seconds at most the row above's
+        secs = [float(line.split()[2])
+                for line in tr.report().splitlines()[1:]]
+        assert secs == sorted(secs, reverse=True)
+    assert len(reports[0]) == len(reports[1]) == 4
     for a, b in zip(*reports):
-        assert a.split()[:2] == b.split()[:2] or a.startswith("section")
+        assert a.split()[:2] == b.split()[:2]
     assert TP.Tracer().wrap("x", lambda: torch.ones(2))().sum() == 2
 
 

@@ -917,6 +917,76 @@ def test_run_segment_graph_matches_eager_ch_flagship(cuda, monkeypatch,
                          250, {"launches.K5": 2, "launches.K7": 3})
 
 
+def _sw_slab_system(cuda, tmp_path, cells, ntraj=64, nmd=256):
+    """The silicon slab of ``tools.slab`` cut to ``cells`` (K9 twice a
+    step, K7 three times), its baths' noise and a start drawn here."""
+    from sclmd_tpu_torch.tools import slab as SL
+    r = SL.slab_runner("sw", torch.float32, cuda, str(tmp_path), cells=cells,
+                       nmd=nmd)
+    system = r._build_system()
+    gen = torch.Generator(device=cuda).manual_seed(ntraj)
+    system = system.replace(baths=tuple(
+        b.replace(noise=0.01 * torch.randn((ntraj, nmd, b.nc), device=cuda,
+                                           generator=gen))
+        for b in system.baths))
+    st = TMD.initial_state(system, ntraj).replace(
+        p=0.02 * torch.randn((ntraj, system.nph), device=cuda, generator=gen)
+        * system.mask)
+    return system, st
+
+
+@pytest.mark.parametrize("cells", [(4, 2, 2), (12, 6, 6)])
+def test_run_segment_graph_matches_eager_sw_slab(cuda, monkeypatch, tmp_path,
+                                                 cells):
+    """The silicon slab (``SWDriver``, marked capturable) at 64
+    trajectories over two whole groups and three steps: cut to 4 x 2 x 2
+    cells (K7 staged) and whole (nph 10,368: every K7 launch on its
+    unstaged route)."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    system, st = _sw_slab_system(cuda, tmp_path, cells)
+    wide = K7.launches_wide
+    nsteps = 2 * SG.GRAPH_STEPS + 3
+    _graph_against_eager(monkeypatch, system, st, nsteps, 250,
+                         {"launches.K9": 2, "launches.K7": 3})
+    assert (K7.launches_wide - wide == 2 * 3 * nsteps) == \
+        (cells == (12, 6, 6))
+
+
+def test_sw_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
+    """Under replay the profiler sees each of K9's three kernels once an
+    evaluation the program counts (``launches.K9``), and K7's kernel once
+    a launch counted: what the benchmark's K9 and K7 rooflines compare."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.utils import profiling as P
+    system, st = _sw_slab_system(cuda, tmp_path, (4, 2, 2))
+    nsteps = 3 * SG.GRAPH_STEPS + 1
+    TMD.run_segment(system, st, nsteps, t0=0)          # scratch, capture
+    torch.cuda.synchronize()
+    before = P.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        TMD.run_segment(system, st, nsteps, t0=0)
+        torch.cuda.synchronize()
+    after = P.counters()
+    assert after["steps_graphed"] - before["steps_graphed"] == \
+        3 * SG.GRAPH_STEPS
+    k9 = after["launches.K9"] - before["launches.K9"]
+    k7 = after["launches.K7"] - before["launches.K7"]
+    assert k9 == 2 * nsteps and k7 == 3 * nsteps
+    import json
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    seen = {}
+    for k in ("slot_transpose_kernel", "sw_centre_kernel",
+              "slot_gather_kernel", "bath_force_kernel"):
+        seen[k] = sum(k in n for n in names)
+    assert seen == {"slot_transpose_kernel": k9, "sw_centre_kernel": k9,
+                    "slot_gather_kernel": k9, "bath_force_kernel": k7}
+
+
 # --- K3 and K3b: noise synthesis with the in-kernel Philox draw -------------
 def _noise_factors(kind, nc, nmd, device, seed=0):
     """Complex64 factors of a random PSD: one matrix (``prop``, nc >= 8)

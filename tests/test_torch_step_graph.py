@@ -117,14 +117,25 @@ def test_graph_plan_engages_where_safe(case, engages):
 
 
 def test_ch_driver_is_marked_capturable():
-    """``CHDriver`` (K5 on the card) is marked; the slot drivers and the
+    """``CHDriver`` (K5 on the card) is marked; the EAM driver and the
     Tersoff driver are not, and keep the eager step."""
     from sclmd_tpu_torch.models.eam import EAMDriver
-    from sclmd_tpu_torch.models.sw import SWDriver
     from sclmd_tpu_torch.models.tersoff import TersoffDriver
     assert CHDriver.capturable is True
-    for cls in (TersoffDriver, SWDriver, EAMDriver):
+    for cls in (TersoffDriver, EAMDriver):
         assert not getattr(cls, "capturable", False)
+
+
+def test_sw_driver_is_marked_capturable():
+    """``SWDriver`` (K9 on the card: launches into kept scratch, its
+    output from the caching allocator, no host sync) is marked, so the
+    graph engages for its bound force."""
+    from sclmd_tpu_torch.models.sw import SWDriver
+    assert SWDriver.capturable is True
+    drv = SWDriver.__new__(SWDriver)
+    plan = TMD.graph_plan(_system(force_fn=drv.force_torch), _on("cuda"),
+                          4 * G + 3)
+    assert plan == SG.group_plan(4 * G + 3)
 
 
 class _FakeGraph:
