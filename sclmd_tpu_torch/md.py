@@ -51,8 +51,10 @@ noise into both. Still to port (ROADMAP queue 1): traced
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import os
+import time
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
@@ -580,13 +582,32 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
-def _write_texts(files):
+def _to_host_async(*xs: torch.Tensor):
+    """Start copying the tensors ``xs`` of one card into pinned host
+    memory; returns the host tensors and a CUDA event recorded after the
+    copies, or, for tensors on the CPU, plain copies and None."""
+    cuda = xs[0].is_cuda
+    out = []
+    for x in xs:
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=cuda)
+        h.copy_(x, non_blocking=cuda)
+        out.append(h)
+    event = None
+    if cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(xs[0].device))
+    return out, event
+
+
+def _write_texts(files, count: bool = True):
     """Write small text files, each ``(path, text)`` of ``files``, through
     raw ``os.open``/``os.write``: the runner writes one kappa file per
     trajectory and bath, and buffered ``open()`` costs several times the
     two syscalls a file (the JAX package measured 2-3 ms against 0.13
     ms; ``sclmd_tpu/md.py:396``). The bytes are those ``open(path,
-    "w").write(text)`` would write. Counted once for the batch."""
+    "w").write(text)`` would write. Returns (files, bytes), counted once
+    for the batch unless ``count`` is false (another thread's writes:
+    the counters are not thread-safe)."""
     n = nbytes = 0
     for path, text in files:
         data = text.encode()
@@ -597,8 +618,10 @@ def _write_texts(files):
             os.close(fd)
         n += 1
         nbytes += len(data)
-    profiling.count("files", n)
-    profiling.count("bytes_written", nbytes)
+    if count:
+        profiling.count("files", n)
+        profiling.count("bytes_written", nbytes)
+    return n, nbytes
 
 
 def _write_text(path: str, text: str):
@@ -1088,8 +1111,14 @@ class md:
         """Run ``ntraj`` independent trajectories; returns the
         per-trajectory mean bath currents (ntraj, nbaths) after skipping
         the first ``equil_frac`` of the steps, and writes the
-        kappa.T.bathI.runJ.dat files (a chunk's files while the next chunk
-        runs on the card).
+        kappa.T.bathI.runJ.dat files. Without ``checkpoint``, a chunk
+        followed by another has its sums copied to the host as soon as
+        its last segment is enqueued, and a writer thread writes its files
+        while the next chunk runs on the card (counter ``files_behind``);
+        the last chunk's files are written on the calling thread. Every
+        file is written when the call returns or raises; the writer's
+        ``OSError`` is raised by the call, and a chunk's non-finite
+        currents at most one chunk late, with no file of that chunk.
 
         The blocked integrator runs when ``block`` (or the runner's)
         divides the segment length and the baths are non-local phonon
@@ -1169,6 +1198,11 @@ class md:
             with profiling.span("ensemble/files"):
                 self._write_kappa_files(cur_sum[c0:c1] / max(cur_cnt, 1), c0)
 
+        def nonfinite(dic, di):
+            return FloatingPointError(
+                f"RunEnsemble: non-finite heat currents in chunk {dic} "
+                f"segment {di} - reduce dt or check the force driver")
+
         def drain(item):
             d0, d1, dic, di, dsum, dok, last = item
             with profiling.span("ensemble/readback"):
@@ -1177,53 +1211,110 @@ class md:
                     cur_sum[d0:d1] += dsum.double().cpu().numpy()
             profiling.count("syncs", 2 if good else 1)
             if not good:
-                raise FloatingPointError(
-                    f"RunEnsemble: non-finite heat currents in chunk {dic} "
-                    f"segment {di} - reduce dt or check the force driver")
+                raise nonfinite(dic, di)
             if last:
-                # the chunk's kappa files, while the next chunk runs
                 finish(d0, d1)
 
+        # The kappa files of every chunk but the last are written on one
+        # writer thread while the later chunks run on the card: its waits
+        # (the event, the file syscalls) release the GIL, as do the
+        # calling thread's waits in graph replays and blocking copies.
+        # The writer touches only its chunk's rows of cur_sum and no
+        # profiling state.
+        writer, behind = None, None
+
+        def write_behind(d0, d1, dic, di, sums, ok, event):
+            if event is not None:
+                event.synchronize()
+            if not ok.numpy():
+                raise nonfinite(dic, di)
+            cur_sum[d0:d1] += sums.numpy()
+            t0 = time.perf_counter()
+            n, nbytes = self._write_kappa_files(
+                cur_sum[d0:d1] / max(cur_cnt, 1), d0, count=False)
+            return n, nbytes, time.perf_counter() - t0
+
+        def join():
+            """Wait for the writer's chunk, raise what it raised, and count
+            its read-back and files here."""
+            nonlocal behind
+            if behind is None:
+                return
+            done, behind = behind, None
+            n, nbytes, seconds = done.result()
+            profiling.count("syncs", 2)
+            profiling.count("files", n)
+            profiling.count("files_behind", n)
+            profiling.count("bytes_written", nbytes)
+            profiling.add_span("ensemble/files_behind", seconds)
+
+        def hand_over(item):
+            """A chunk's last segment, with another chunk after it: its
+            sums and flag start for the host now, and the writer adds them
+            up and writes its files once the chunk before's are done (so a
+            failure is raised at most one chunk late)."""
+            nonlocal writer, behind
+            d0, d1, dic, di, dsum, dok, _ = item
+            with profiling.span("ensemble/readback"):
+                (sums, ok), event = _to_host_async(dsum.double(), dok)
+            join()
+            if writer is None:
+                writer = concurrent.futures.ThreadPoolExecutor(
+                    1, thread_name_prefix="sclmd-kappa")
+            behind = writer.submit(write_behind, d0, d1, dic, di, sums, ok,
+                                   event)
+
         pending, first = [], None
-        for ic in range(-(-ntraj // chunk)):
-            c0, c1 = ic * chunk, min((ic + 1) * chunk, ntraj)
-            if ic < ichunk0:                  # finished before the resume
-                finish(c0, c1)
-                continue
-            if ic == ichunk0 and ck_state is not None:
-                noises, states, pie0 = ck_noises, ck_state, ipie0 + 1
-                if pie0 >= npie:
+        try:
+            for ic in range(-(-ntraj // chunk)):
+                c0, c1 = ic * chunk, min((ic + 1) * chunk, ntraj)
+                if ic < ichunk0:                  # finished before the resume
                     finish(c0, c1)
                     continue
-            else:
-                with profiling.span("ensemble/draw"):
-                    noises, states = draw_chunk(facs, seed, c0, c1, self.dt,
-                                                self.nmd, start, system)
-                pie0 = 0
-            for i in range(pie0, npie):
-                with profiling.span("ensemble/segment"):
-                    states, sums, ok = fused_chunk(
-                        system, facs, None, seg, (i * seg) % self.nmd, block,
-                        min(max(0, skip - i * seg), seg), noises=noises,
-                        states=states)
-                profiling.count("steps", seg)
-                item = (c0, c1, ic, i, sums, ok, i == npie - 1)
-                if checkpoint:
-                    drain(item)
-                    self._save_ensemble_checkpoint(
-                        fn, states, noises, ic, i, chunk, ntraj, cur_sum,
-                        cur_cnt, seed)
-                    continue
-                # read a segment's sums back only after the next one's
-                # launches: those then overlap it on the card (reading
-                # them at once would leave the card idle)
-                pending.append(item)
-                while len(pending) > 1:
-                    drain(pending.pop(0))
-            if first is None:
-                first = states.select(0)
-        for item in pending:
-            drain(item)
+                if ic == ichunk0 and ck_state is not None:
+                    noises, states, pie0 = ck_noises, ck_state, ipie0 + 1
+                    if pie0 >= npie:
+                        finish(c0, c1)
+                        continue
+                else:
+                    with profiling.span("ensemble/draw"):
+                        noises, states = draw_chunk(facs, seed, c0, c1,
+                                                    self.dt, self.nmd, start,
+                                                    system)
+                    pie0 = 0
+                for i in range(pie0, npie):
+                    with profiling.span("ensemble/segment"):
+                        states, sums, ok = fused_chunk(
+                            system, facs, None, seg, (i * seg) % self.nmd,
+                            block, min(max(0, skip - i * seg), seg),
+                            noises=noises, states=states)
+                    profiling.count("steps", seg)
+                    item = (c0, c1, ic, i, sums, ok, i == npie - 1)
+                    if checkpoint:
+                        drain(item)
+                        self._save_ensemble_checkpoint(
+                            fn, states, noises, ic, i, chunk, ntraj, cur_sum,
+                            cur_cnt, seed)
+                        continue
+                    if i == npie - 1 and c1 < ntraj:
+                        while pending:
+                            drain(pending.pop(0))
+                        hand_over(item)
+                        continue
+                    # read a segment's sums back only after the next one's
+                    # launches: those then overlap it on the card (reading
+                    # them at once would leave the card idle)
+                    pending.append(item)
+                    while len(pending) > 1:
+                        drain(pending.pop(0))
+                if first is None:
+                    first = states.select(0)
+            for item in pending:
+                drain(item)
+            join()
+        finally:
+            if writer is not None:
+                writer.shutdown()   # no file write outlives the call
         self.state = first
         return cur_sum / max(cur_cnt, 1)
 
@@ -1244,15 +1335,16 @@ class md:
             _save_npz(fn, data)
 
     # ---- output files ----
-    def _write_kappa_files(self, means, lo: int = 0):
+    def _write_kappa_files(self, means, lo: int = 0, count: bool = True):
         """Per-trajectory kappa.T.bathI.runJ.dat files of trajectories
         lo, lo+1, ... (the rows of ``means``), the format the calHF/calTC
-        aggregators read."""
-        _write_texts(
-            (os.path.join(self.outdir,
-                          f"kappa.{self.T:g}.bath{ii}.run{lo + jj}.dat"),
-             "%i %f    %f \n" % (lo + jj, self.T, m * U.CURCOF))
-            for jj, row in enumerate(means) for ii, m in enumerate(row))
+        aggregators read; returns (files, bytes) (``_write_texts``)."""
+        return _write_texts(
+            ((os.path.join(self.outdir,
+                           f"kappa.{self.T:g}.bath{ii}.run{lo + jj}.dat"),
+              "%i %f    %f \n" % (lo + jj, self.T, m * U.CURCOF))
+             for jj, row in enumerate(means) for ii, m in enumerate(row)),
+            count)
 
     def _write_traj(self, fh, ys, seg, ipie):
         """ani-format frames every ``nstep`` steps: element, position

@@ -21,6 +21,10 @@ read-back, a batch of files, a checkpoint), never a step:
     ensemble/segment     a chunk's segment enqueued (fused_chunk)
     ensemble/readback    the host's wait for a segment's sums and flag
     ensemble/files       a chunk's kappa files
+    ensemble/files_behind
+                         a chunk's kappa files written on the writer
+                         thread while the next chunk runs (timed there,
+                         added by the calling thread: ``add_span``)
     ensemble/checkpoint  an MDE.npz write
     run                  md.Run, the whole call
     run/start            system, seed, initialise, checkpoint probing,
@@ -43,8 +47,10 @@ Counters. ``counters()`` reads them all: the program's own, added with
 over chunks; ``syncs``: the runners' reads of device values, each
 ``md._host`` copy and finite flag; ``files`` and
 ``bytes_written``: kappa, power and structure files and the MD{j}.npz /
-MDE.npz checkpoints; ``library_builds``: compilations of the kernel
-library; ``steps_graphed``: plain steps run by replaying a CUDA graph,
+MDE.npz checkpoints; ``files_behind``: the kappa files of those
+``files`` that ``RunEnsemble``'s writer thread wrote;
+``library_builds``: compilations of the kernel library;
+``steps_graphed``: plain steps run by replaying a CUDA graph,
 ``graph_captures``: the graphs captured, ``kernels.step_graph``), and
 the kernels' launch counters, each a plain integer global
 of its module registered once at import (``register``):
@@ -101,7 +107,7 @@ _process = Report("process")
 _open = []                              # reports of the calls under way
 _ring = collections.deque(maxlen=RING)
 _counts = dict.fromkeys(("steps", "syncs", "files", "bytes_written",
-                         "library_builds", "steps_graphed",
+                         "files_behind", "library_builds", "steps_graphed",
                          "graph_captures"), 0)
 _registered = {}                        # name -> (module name, attribute)
 
@@ -109,6 +115,20 @@ _registered = {}                        # name -> (module name, attribute)
 def count(name: str, n: int = 1):
     """Add ``n`` to the program counter ``name``."""
     _counts[name] += n
+
+
+def add_span(name: str, seconds: float):
+    """Add one span ``name`` of ``seconds`` host time, timed elsewhere, to
+    the open report. Counters, spans and reports are not thread-safe: work
+    on another thread is timed there and added here by the thread that
+    made the call."""
+    spans = (_open[-1] if _open else _process).spans
+    st = spans.get(name)
+    if st is None:
+        spans[name] = [1, seconds]
+    else:
+        st[0] += 1
+        st[1] += seconds
 
 
 def register(name: str, module: str, attr: str):
@@ -169,13 +189,7 @@ class span:
         self.seconds = (time.perf_counter_ns() - self._t0) * 1e-9
         if self._rf is not None:
             self._rf.__exit__(*exc)
-        spans = (_open[-1] if _open else _process).spans
-        st = spans.get(self.name)
-        if st is None:
-            spans[self.name] = [1, self.seconds]
-        else:
-            st[0] += 1
-            st[1] += self.seconds
+        add_span(self.name, self.seconds)
         return False
 
 

@@ -1,6 +1,7 @@
 """The benchmark's per-layer metrics that read the program's own spans
 and counters (``benchmarks/metrics/{launches_per_step,readback_ms,
-checkpoint_ms,start_ms}.*.py`` through ``benchmarks/reports.py``): each
+checkpoint_ms,start_ms,kappa_behind_share}.*.py`` through
+``benchmarks/reports.py``): each
 reads a traced CPU run of its cell at a cut size, and gives nothing
 where the program keeps no reports, too few, or another entry's. No
 JAX."""
@@ -115,3 +116,38 @@ def test_window_without_program_reports(monkeypatch):
     monkeypatch.delattr(profiling, "reports")
     assert reports.window(_view(1), "Run") is None
     assert reports.launches_per_step(_view(1, kernels=10), "Run") is None
+
+
+BEHIND = "kappa_behind_share.ens"
+
+
+def _behind():
+    entry = [m for m in spec.benchmark()["per_layer"]
+             if m["name"] == BEHIND][0]
+    return entry, spec.load_file(f"{spec.HERE}/metrics/{BEHIND}.py", BEHIND)
+
+
+def test_kappa_behind_share_reads_the_counters():
+    """``files_behind`` over ``files`` across the window's calls, in %;
+    None where a report lacks the counter (a tree older than the
+    writer thread)."""
+    entry, mod = _behind()
+    assert (mod.UNIT, mod.LAYER, mod.MOVES) == \
+        (entry["unit"], entry["layer"], entry["moves"])
+    assert mod.SPANS == {}
+    for behind in (1024, 0):
+        with profiling.call("RunEnsemble", "ensemble"):
+            profiling.count("files", 2048)
+            profiling.count("files_behind", behind)
+    assert mod.read(_view(2)) == 25.0
+    assert mod.read(_view(1)) == 0.0
+    del profiling.reports()[-1].counters["files_behind"]
+    assert mod.read(_view(2)) is None
+
+
+@pytest.mark.parametrize("cell", _behind()[0]["workloads"])
+def test_kappa_behind_share_of_a_one_chunk_run(traced_runs, cell):
+    """Each cell's cut run is one chunk of four trajectories, whose files
+    the calling thread writes: the share reads 0."""
+    res = traced_runs(cell)
+    assert res["metrics"][BEHIND] == {"value": 0.0, "unit": "%"}

@@ -9,6 +9,8 @@ generator state), and the thermal-init phases are the uniforms JAX's
 """
 
 import os
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from sclmd_tpu_torch import md as TMD
 from sclmd_tpu_torch.kernels import noise_synth as K3
 from sclmd_tpu_torch.ops import noise as TN
 from sclmd_tpu_torch.parallel import ensemble as TE
+from sclmd_tpu_torch.utils import profiling as P
 
 torch.set_num_threads(2)
 
@@ -241,6 +244,80 @@ def test_kappa_files_are_the_bytes_of_buffered_open(tmp_path):
                                              means[j, i] * TMD.U.CURCOF))
             assert (tmp_path / "a" / name).read_bytes() == \
                 (tmp_path / "b" / name).read_bytes()
+
+
+def _kappa_bytes(d):
+    return {p.name: p.read_bytes() for p in d.glob("kappa.*.dat")}
+
+
+@pytest.mark.parametrize("chunk,checkpoint,behind", [
+    (6, False, 0), (2, False, 8), (1, False, 10), (2, True, 0)])
+def test_kappa_files_behind_the_card(tmp_path, chunk, checkpoint, behind):
+    """The kappa files of every chunk but the last come from the writer
+    thread (``files_behind`` of ``files``, two baths a trajectory): the
+    same bytes and means as one chunk, every file on disk when the call
+    returns and no thread left; one chunk and ``checkpoint=True`` write
+    on the calling thread. A short switch interval interleaves the writer
+    with the calling thread."""
+    ref, d = tmp_path / "one", tmp_path / "got"
+    ref.mkdir()
+    d.mkdir()
+    want = _torch_runner(ref).RunEnsemble(6, chunk=6)
+    threads, interval = threading.active_count(), sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got = _torch_runner(d).RunEnsemble(6, chunk=chunk,
+                                           checkpoint=checkpoint)
+    finally:
+        sys.setswitchinterval(interval)
+    rep = P.reports()[-1]
+    assert threading.active_count() == threads
+    assert np.array_equal(got, want)
+    files = _kappa_bytes(d)
+    assert len(files) == 12 and files == _kappa_bytes(ref)
+    assert rep.counters["files_behind"] == behind
+    assert rep.counters["files"] == 12 + (6 // chunk if checkpoint else 0)
+    assert rep.span_count("ensemble/files_behind") == behind // (2 * chunk)
+    assert rep.span_count("ensemble/files") == 6 // chunk - behind // (
+        2 * chunk)
+
+
+@pytest.mark.parametrize("bad", [0, 1])
+def test_nonfinite_chunk_raises_and_writes_none_of_its_files(
+        tmp_path, monkeypatch, bad):
+    """Non-finite currents in chunk 0 (its files on the writer thread,
+    raised at the join) or in the last chunk (on the calling thread) raise
+    the same FloatingPointError; that chunk writes no kappa file, the
+    other writes its own, and no writer thread is left."""
+    real, seen = TE.cur_reduce, []
+
+    def flagged(cur, lo):
+        sums, ok = real(cur, lo)
+        seen.append(cur.shape[0])
+        return sums, ok & (len(seen) != bad + 1)
+    monkeypatch.setattr(TE, "cur_reduce", flagged)
+    threads = threading.active_count()
+    with pytest.raises(FloatingPointError, match=(
+            f"RunEnsemble: non-finite heat currents in chunk {bad} segment 0 "
+            "- reduce dt or check the force driver")):
+        _torch_runner(tmp_path).RunEnsemble(4, chunk=2)
+    assert threading.active_count() == threads
+    runs = {int(name.split(".run")[1].split(".")[0])
+            for name in _kappa_bytes(tmp_path)}
+    assert runs == {0, 1, 2, 3} - {2 * bad, 2 * bad + 1}
+
+
+def test_writer_error_is_raised_by_the_call(tmp_path):
+    """A kappa file the writer thread cannot create (a directory stands
+    at its path) raises that OSError from the call, after the last
+    chunk's files are written on the calling thread; no thread left."""
+    (tmp_path / "kappa.300.bath1.run0.dat").mkdir()
+    threads = threading.active_count()
+    with pytest.raises(IsADirectoryError):
+        _torch_runner(tmp_path).RunEnsemble(4, chunk=2)
+    assert threading.active_count() == threads
+    assert (tmp_path / "kappa.300.bath0.run2.dat").is_file()
+    assert (tmp_path / "kappa.300.bath1.run3.dat").is_file()
 
 
 def test_auto_chunk_budget():

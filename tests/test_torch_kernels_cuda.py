@@ -987,6 +987,33 @@ def test_sw_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
                     "slot_gather_kernel": k9, "bath_force_kernel": k7}
 
 
+def test_flagship_ensemble_files_behind_the_card(cuda, tmp_path):
+    """The many-body flagship's ensemble of 64 in two chunks on the card:
+    chunk 0's kappa files come from the writer thread (``files_behind``,
+    two baths a trajectory; the sums read back through pinned memory and
+    an event) with the bytes and means of the same chunks run
+    synchronously (``checkpoint=True``), and the means of one chunk to
+    float32 rounding (the kernels' launch shapes follow the chunk)."""
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.utils import profiling as P
+    got = {}
+    for chunk, checkpoint in ((64, False), (32, True), (32, False)):
+        d = tmp_path / f"c{chunk}{checkpoint}"
+        d.mkdir()
+        r = F.flagship_runner(torch.float32, cuda, str(d), nmd=256,
+                              many_body=True)
+        means = r.RunEnsemble(64, chunk=chunk, checkpoint=checkpoint)
+        got[chunk, checkpoint] = (
+            means, {p.name: p.read_bytes() for p in d.glob("kappa.*.dat")},
+            P.reports()[-1].counters)
+    (m1, _, c1), (ms, fs, cs), (m2, f2, c2) = got.values()
+    assert np.isfinite(m2).all() and np.array_equal(m2, ms)
+    assert len(f2) == 128 and f2 == fs
+    assert (c1["files_behind"], cs["files_behind"], c2["files_behind"]) \
+        == (0, 0, 64)
+    assert c2["files"] == 128
+    np.testing.assert_allclose(m2, m1, rtol=0, atol=1e-4 * abs(m1).max())
+
 # --- K3 and K3b: noise synthesis with the in-kernel Philox draw -------------
 def _noise_factors(kind, nc, nmd, device, seed=0):
     """Complex64 factors of a random PSD: one matrix (``prop``, nc >= 8)

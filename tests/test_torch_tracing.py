@@ -142,16 +142,20 @@ def _sizes(d, pattern):
 def test_ensemble_report_counts(traced, case):
     """Chunks, segments and read-backs as the call ran them; ``steps`` the
     steps enqueued; one file a trajectory and bath (and an MDE.npz a
-    segment with checkpoints) and their bytes as on disk."""
+    segment with checkpoints) and their bytes as on disk; without
+    checkpoints the first chunk's files from the writer thread."""
     rep, _, _, d = traced[case]
     nchunk, nb = NTRAJ // CHUNK, 2
+    behind = 0 if case == "checkpoint" else nchunk - 1
     assert rep.entry == "RunEnsemble" and rep.wall_s > 0
     assert rep.span_count("ensemble") == 1
     assert rep.span_count("ensemble/start") == 1
     assert rep.span_count("ensemble/draw") == nchunk
     assert rep.span_count("ensemble/segment") == nchunk * NPIE
     assert rep.span_count("ensemble/readback") == nchunk * NPIE
-    assert rep.span_count("ensemble/files") == nchunk
+    assert rep.span_count("ensemble/files") == nchunk - behind
+    assert rep.span_count("ensemble/files_behind") == behind
+    assert rep.counters["files_behind"] == behind * CHUNK * nb
     assert rep.counters["steps"] == nchunk * 16
     assert rep.counters["syncs"] >= 2 * nchunk * NPIE
     kappa = _sizes(d, "kappa.*.dat")
