@@ -43,7 +43,7 @@ SMEM_LIMIT = 227 * 1024   # dynamic shared memory a CTA may ask for (H100)
 # left. On an H100 (50 MB of L2) with the primary junction's 65 MB slab at
 # one trajectory, shares of 0.55-0.7 gave about 24 us per step against
 # about 29 both with none of it and with all of L2 asked for, and about 26
-# at 0.4 and 0.85 (``tools/plain_bench.py --sweep``)
+# at 0.4 and 0.85 (PERF.md, Findings)
 KEEP_L2_SHARE = 0.7
 
 

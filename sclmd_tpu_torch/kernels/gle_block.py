@@ -50,7 +50,10 @@ launches_far = 0      # gle_far kernel launches (not twin calls)
 MAX_BATHS = 4         # GLE_MAX_BATHS in csrc/gle_block.cu, FAR_MAX_BATHS
 THREADS = 512         # GLE_THREADS in csrc/gle_block.cu
 SMEM_LIMIT = 227 * 1024
-SUB = 12              # steps per sub-block (tools/k1_sweep.py)
+# steps per sub-block: at the primary shapes on an H100, 8 to 16 steps
+# ran within 1-2 % of each other, 12 the fastest, and 32 and 64 slower by
+# 10 and 36 % a block (PERF.md, Findings)
+SUB = 12
 
 
 def reset_count():
@@ -233,8 +236,8 @@ def gle_far_plain(kin: torch.Tensor, ring: torch.Tensor, O: torch.Tensor,
 
 
 def sub_steps(block: int) -> int:
-    """Steps per sub-block: ``SUB`` (from the sweep of
-    ``tools/k1_sweep.py`` at the primary shapes), at most the block."""
+    """Steps per sub-block: ``SUB`` (the fastest of a sweep at the
+    primary shapes), at most the block."""
     return min(block, SUB)
 
 
@@ -308,8 +311,9 @@ def tile_size(ntraj: int, nph: int, nb: int, ncmax: int, sub: int,
     that fits shared memory and still gives about one CTA per SM. A CTA
     reads dyn and its near taps from L2 at every step for its whole
     tile, so a larger tile cuts L2 traffic; fewer CTAs than SMs leave
-    SMs idle (``tools/k1_sweep.py`` at the primary shapes: 256
-    trajectories fastest at two per CTA, 512 at four)."""
+    SMs idle (a sweep at the primary shapes on an H100: 256
+    trajectories fastest at two per CTA, 512 at four; PERF.md,
+    Findings)."""
     lib = build.load()
     nsm = torch.cuda.get_device_properties(device).multi_processor_count
     for tt in (4, 2, 1):

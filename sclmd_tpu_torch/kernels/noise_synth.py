@@ -440,18 +440,3 @@ def _init_draw(seed, stream, lo, hi, n, device, am=None, hw=None):
     build.check(rc, "init_draw")
     launches_init += 1
     return out
-
-
-def work_counts(nc: int, h: int, ntraj: int, nu: int) -> dict:
-    """What one K3 call must do: the products (4 nc^2 per column, as
-    float32 operations; three TF32 products each on the tensor cores)
-    and the bytes (U and std read once, the half spectrum written
-    once)."""
-    return {"flops": 4 * nc * nc * h * ntraj,
-            "bytes": nu * nc * nc * 8 + h * nc * 4 + ntraj * h * nc * 8}
-
-
-def c2r_bytes(nmd: int, ntraj: int, nc: int) -> int:
-    """The C2R stage's least traffic: the half spectrum read once and the
-    (ntraj, nmd, nc) series written once."""
-    return ntraj * nc * ((nmd // 2 + 1) * 8 + nmd * 4)

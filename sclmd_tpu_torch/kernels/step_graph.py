@@ -43,9 +43,9 @@ from sclmd_tpu_torch.utils import profiling
 # back to the same parity after every replay. A segment's host time is
 # about (LEAD + GRAPH_STEPS + its remainder) eager steps for the lead, the
 # capture and the tail, plus a few microseconds a replay, against
-# GRAPH_STEPS steps of card time a replay. On an H100 (700 W;
-# tools/plain_bench.py --workload graph_sweep, three segments each, two
-# calls) the primary chain's 1,024-step segment at one trajectory took
+# GRAPH_STEPS steps of card time a replay. On an H100 (700 W; a sweep of
+# the group length, three segments each, two calls; CHANGES.md) the
+# primary chain's 1,024-step segment at one trajectory took
 # 4.9-8.5 ms of host time and 60.3-61.7 ms of wall time at 8 steps,
 # against 58-77 ms of both eagerly; 4 steps read the same within the
 # spread (5.8-7.8 and 59.9-62.0), 16 the same in one call and 9.6-89 ms

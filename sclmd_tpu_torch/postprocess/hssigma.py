@@ -40,13 +40,6 @@ def expand_pivoted_sigma(SFE, pivot, n: int):
     return out
 
 
-def kaverage_flops(ne: int, nk: int, n: int) -> float:
-    """Real operations of ``kaverage_extract``: per (E, k) three complex
-    inverses and a three-product trace (48 n^3); per E four inverses and
-    the real-space trace (56 n^3)."""
-    return float(ne) * (nk * 48.0 + 56.0) * n ** 3
-
-
 def kaverage_extract(Hk, Sk, SigLk, SigRk, E, wk, eta: float = 1e-4,
                      batch_size: int = 8, device=None):
     """k-averaged real-space self-energies over an energy grid.

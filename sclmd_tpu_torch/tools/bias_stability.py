@@ -7,10 +7,11 @@ bias zeta2, is the companion system d/dt (q, v) = [[0, I], [K, -G]];
 the largest real part of its eigenvalues (natural units, 1/time) says
 whether a run grows without bound. Printed for the flagship without the
 centre bath, with rundp's matrices as the pipeline gives them (rundp's
-shift applied), and with the scaled matrices that chip_smoke phase 23
-runs, beside eta's largest eigenvalue times the step. Host numpy
-float64 on the CPU (the pipeline at 96 orbitals and three 966-wide
-eigenvalue problems): a few CPU minutes.
+shift applied), and with the scaled matrices that
+``flagship.biased_flagship_runner`` runs, beside eta's largest
+eigenvalue times the step. Host numpy float64 on the CPU (the pipeline
+at 96 orbitals and three 966-wide eigenvalue problems): a few CPU
+minutes.
 
 Run:  python -m sclmd_tpu_torch.tools.bias_stability
 """

@@ -22,7 +22,6 @@ the wbLambda file.
 import os
 
 import numpy as np
-import torch
 
 NMD, T, DELTA = 1024, 300.0, 0.1
 # the NEGF sweep of scripts/exp_crosscheck_flagship.py that made the npz:
@@ -158,12 +157,3 @@ def flagship_bpt(device):
                [part["ecatsl"], part["ecatsr"]],
                [fix[:len(fix) // 2], fix[len(fix) // 2:]], num=NUM,
                device=device)
-
-
-def chunk_sizes(system, ntraj: int) -> list:
-    """The trajectory counts of the chunks ``RunEnsemble(ntraj)`` runs on
-    the plain step (``block=None``)."""
-    from sclmd_tpu_torch.parallel.ensemble import auto_chunk
-
-    chunk = min(auto_chunk(system, ntraj, NMD, None, depth=2), ntraj)
-    return [min(chunk, ntraj - c0) for c0 in range(0, ntraj, chunk)]

@@ -38,14 +38,6 @@ def primary_runner(dtype, device, outdir):
     return r
 
 
-def chunk_sizes(system, ntraj: int) -> list:
-    """The trajectory counts of the chunks ``RunEnsemble(ntraj)`` runs."""
-    from sclmd_tpu_torch.parallel.ensemble import auto_chunk
-
-    chunk = min(auto_chunk(system, ntraj, NMD, BLOCK, depth=2), ntraj)
-    return [min(chunk, ntraj - c0) for c0 in range(0, ntraj, chunk)]
-
-
 def block_operands(r, ntraj: int, seed: int, gen: torch.Generator):
     """K1's operands for one block of the primary junction: a thermal
     start, real colored noise, and the K2 tails of a random history.

@@ -3,7 +3,7 @@
 Both packages build baths from the same numpy inputs (CPU float64). The
 kernel wrappers take their plain twins on CPU tensors; the CUDA kernels
 themselves are compared with those twins on the card by
-tests/test_torch_kernels_cuda.py and by chip_smoke.py.
+tests/test_torch_kernels_cuda.py.
 """
 
 import numpy as np

@@ -1,6 +1,7 @@
-"""The port's measurement tools on the CPU: the primary-junction set-up
-that chip_smoke.py and the sweeps share, and the kernel's tap-major
-operand. No JAX."""
+"""The port's workload set-up (``sclmd_tpu_torch.tools``) on the CPU:
+the primary junction and the flagship that the card tests build, the
+chunks ``RunEnsemble`` runs, and the kernel's tap-major operand. No
+JAX."""
 
 import tempfile
 
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from sclmd_tpu_torch.kernels import gle_block as K1
+from sclmd_tpu_torch.tools import chunk_sizes
 from sclmd_tpu_torch.tools import primary as P
 
 torch.set_num_threads(2)
@@ -28,12 +30,11 @@ def test_tap_major_layout(nc, block):
 def test_primary_block_operands_cpu():
     """The primary junction at its full widths with two trajectories:
     the chunk shapes RunEnsemble runs at 256 and 1024 trajectories under
-    the 40 GB budget, and one block of K1's plain twin on the operands
-    chip_smoke.py holds the kernel against."""
+    the 40 GB budget, and one block of K1's plain twin on its operands."""
     r = P.primary_runner(torch.float32, "cpu", tempfile.mkdtemp())
     system = r._build_system()
-    assert P.chunk_sizes(system, 256) == [256]
-    assert P.chunk_sizes(system, 1024) == [512, 512]
+    assert chunk_sizes(system, 256, P.NMD, P.BLOCK) == [256]
+    assert chunk_sizes(system, 1024, P.NMD, P.BLOCK) == [512, 512]
     gen = torch.Generator().manual_seed(1)
     _, args, corr = P.block_operands(r, 2, 7, gen)
     khat, hhat = corr[0]
@@ -56,48 +57,24 @@ def test_flagship_setup_cpu():
     assert [b.nc for b in r.baths] == [150, 150]
     assert [b.T for b in r.baths] == [315.0, 285.0]
     assert int((system.mask == 0).sum()) == 120
-    assert F.chunk_sizes(system, 128) == [128]
-    assert F.chunk_sizes(system, 1024) == [1024]
+    assert chunk_sizes(system, 128, F.NMD) == [128]
+    assert chunk_sizes(system, 1024, F.NMD) == [1024]
     sw = F.flagship_runner(torch.float32, "cpu", tempfile.mkdtemp(),
                            temps=(285.0, 315.0))
     assert [b.T for b in sw.baths] == [285.0, 315.0]
 
 
-def test_card_scripts_refuse_without_cuda(monkeypatch):
-    """The measurement scripts fail, and do not fall back to the CPU,
-    where there is no card."""
-    from sclmd_tpu_torch.tools import plain_bench
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="CUDA"):
-        plain_bench.main()
-
-
 def test_flagship_bpt_setup_cpu():
-    """The flagship's NEGF set-up that chip_smoke phase 20 and
-    ``tools.negf_bench`` share: nd 483 after the 120 fixed DOFs, leads of
-    150 DOFs, 4,001 points up to 0.45 eV, and the sweep's operation
-    count (5.8e8 a point)."""
+    """The flagship's NEGF set-up that the card's check against the
+    committed sweep runs: nd 483 after the 120 fixed DOFs, leads of 150
+    DOFs, 4,001 points up to 0.45 eV."""
     from sclmd_tpu_torch import units
     from sclmd_tpu_torch.tools import flagship as F
-    from sclmd_tpu_torch.tools.negf_bench import negf_flops
     b = F.flagship_bpt("cpu")
     assert b.nd == 483 and b.intnum + 1 == 4001
     assert [len(g) for g in b.dofatomofbath] == [150, 150]
     assert b.maxomega * units.RPC == pytest.approx(0.45)
     assert b._D.device.type == "cpu" and b._D.shape == (483, 483)
-    assert negf_flops(483, 150) == pytest.approx(5.804e8, rel=1e-3)
-
-
-@pytest.mark.parametrize("tool", ["blocked_bench", "k1_sweep",
-                                  "negf_bench"])
-def test_card_tools_refuse_the_cpu(monkeypatch, tool):
-    """The measurement tools time the card and stop without one instead
-    of timing the CPU."""
-    import importlib
-    mod = importlib.import_module(f"sclmd_tpu_torch.tools.{tool}")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="CUDA"):
-        mod.main([])
 
 
 def test_bias_stability_growth_rate():
