@@ -22,6 +22,10 @@ kernel reads the step it runs from the segment's step word on the card
 ``BathForce`` launches the hand-written kernel (csrc/bath_force.cu) on
 CUDA tensors and runs the plain twins (``pred_plain``, ``corr_plain``,
 which apply the baths' own ``force_pred``/``force_corr``) on CPU tensors.
+A system too wide to stage its vectors at a tile of one or two
+trajectories (``launch_plan``'s staged 0: the silicon slab) takes the
+wide route instead where its baths are disjoint (``choose_route``): the
+bath force as one product over all trajectories (``wide_plan``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from sclmd_tpu_torch.utils import profiling
 
 launches = 0          # bath_force kernel launches (not twin calls)
 # of those, launches of a tile of one or two trajectories whose system is
-# too wide to stage its vectors (launch_plan's staged 0)
+# too wide to stage its vectors (launch_plan's staged 0): the wide route
 launches_wide = 0
 
 MAX_BATHS = 4         # BF_MAX_BATHS in csrc/bath_force.cu
@@ -216,6 +220,18 @@ class _BfArgs(ctypes.Structure):
                 ("baths", _BfBath * MAX_BATHS)]
 
 
+class _BwArgs(ctypes.Structure):
+    """The wide route's arguments (``BwArgs``): the tiled kernel's, whose
+    launch-plan offsets it leaves unused, and its own."""
+    _fields_ = [("a", _BfArgs),
+                ("part", ctypes.c_void_p), ("tickets", ctypes.c_void_p),
+                ("bath_dof", ctypes.c_void_p),
+                ("nprod", ctypes.c_int), ("ntiles", ctypes.c_int),
+                ("smem_bytes", ctypes.c_int),
+                ("nrt", ctypes.c_int * MAX_BATHS),
+                ("p0", ctypes.c_int * MAX_BATHS)]
+
+
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory a CTA may ask for (H100)
 THREADS = 512             # BF_THREADS in csrc/bath_force.cu
 TILES = (1, 2, 4, 8)      # trajectories per CTA the kernel is built for
@@ -303,6 +319,82 @@ def launch_plan(shapes, nph: int, tt: int, nt: int = THREADS,
     return plan
 
 
+# the wide route's shape (BW_* in csrc/bath_force.cu)
+WIDE_THREADS = 320        # threads of every CTA
+WIDE_CONSUMERS = 256      # of a product CTA's, those that compute
+WIDE_ROWS = 16            # bath rows a product CTA owns
+WIDE_TRAJ = 64            # trajectories a product CTA owns
+WIDE_KC = 64              # reduction rows a stage of its ring holds
+WIDE_STAGES = 4           # stages of the ring
+
+
+def wide_plan(shapes, ntraj: int) -> dict:
+    """The wide route's launch over baths of ``shapes`` = [(nc, K), ...]
+    and ``ntraj`` trajectories: ``nprod`` product CTAs, bath by bath
+    (bath i's ``nrt[i]`` row tiles of ``WIDE_ROWS`` rows times ``ntiles``
+    trajectory tiles of ``WIDE_TRAJ``, from CTA ``p0[i]``, trajectory
+    tile after trajectory tile), then ``ntraj`` update CTAs, one a
+    trajectory; ``grid`` CTAs in all. Shared memory (floats): the ring
+    of ``WIDE_STAGES`` stages (the operand's tile, then the gathered
+    tile, rows padded by one), or in the epilogue the consumer warps'
+    partial sums and the current terms, whichever is larger, then a
+    bath's indices from ``ci_off``; ``smem_bytes`` the whole."""
+    if not shapes:
+        raise ValueError("bath_force: the wide route needs a bath")
+    ntiles = -(-ntraj // WIDE_TRAJ)
+    nrt = [-(-nc // WIDE_ROWS) for nc, _ in shapes]
+    p0, nprod = [], 0
+    for n in nrt:
+        p0.append(nprod)
+        nprod += n * ntiles
+    ring = WIDE_STAGES * (WIDE_KC * WIDE_ROWS +
+                          WIDE_TRAJ * (WIDE_KC + 1))
+    epi = (WIDE_CONSUMERS // 32 + 1) * WIDE_TRAJ * (WIDE_ROWS + 1)
+    ci_off = max(ring, epi)
+    return {"nprod": nprod, "ntiles": ntiles, "nrt": nrt, "p0": p0,
+            "grid": nprod + ntraj, "ci_off": ci_off,
+            "smem_bytes": 4 * (ci_off + _up4(max(nc for nc, _ in shapes)))}
+
+
+def wide_cta(plan: dict, ntraj: int, shapes, i: int):
+    """What CTA ``i`` of a wide launch owns, decoded as the kernel
+    decodes it: ("product", bath, rows, trajectories) with ranges of
+    the bath's rows and of trajectories, or ("update", trajectory)."""
+    if i >= plan["nprod"]:
+        return ("update", i - plan["nprod"])
+    b = max(j for j, p in enumerate(plan["p0"]) if i >= p)
+    pl = i - plan["p0"][b]
+    tile, rt = divmod(pl, plan["nrt"][b])
+    a0, tr0 = rt * WIDE_ROWS, tile * WIDE_TRAJ
+    return ("product", b, range(a0, min(a0 + WIDE_ROWS, shapes[b][0])),
+            range(tr0, min(tr0 + WIDE_TRAJ, ntraj)))
+
+
+def choose_route(shapes, nph: int, ntraj: int, nsm: int, tile=None,
+                 disjoint: bool = True):
+    """(tile, plan, wide) for a launch over baths of ``shapes`` on a card
+    of ``nsm`` SMs: the tile ``tile_size`` gives (or ``tile``), one
+    trajectory a CTA where that tile's plan does not fit, and
+    ``launch_plan``'s plan for it. ``wide``: the system takes the wide
+    route, where the plan cannot stage its vectors at a tile of one or
+    two and its baths share no DOF; other systems keep the tiled
+    kernel."""
+    tt = tile_size(ntraj, nsm) if tile is None else tile
+    if tt not in TILES:
+        raise ValueError(f"bath_force: no kernel for a tile of {tt}")
+    plan = launch_plan(shapes, nph, tt)
+    if plan["smem_bytes"] > SMEM_LIMIT and tile is None:
+        # too wide for this tile: one trajectory per CTA
+        tt = 1
+        plan = launch_plan(shapes, nph, tt)
+    if plan["smem_bytes"] > SMEM_LIMIT:
+        raise ValueError(
+            f"bath_force: {plan['smem_bytes']} bytes of shared memory "
+            f"needed, {SMEM_LIMIT} available")
+    wide = bool(shapes) and disjoint and tt <= 2 and not plan["staged"]
+    return tt, plan, wide
+
+
 def _check_vec(t, ntraj, nph, name):
     if t.shape != (ntraj, nph) or t.dtype != torch.float32 or \
             not t.is_contiguous() or not t.is_cuda:
@@ -346,25 +438,20 @@ class BathForce:
             return
         self.word = StepWord(self.device) if word is None else word
         nsm = torch.cuda.get_device_properties(device).multi_processor_count
-        tt = tile_size(ntraj, nsm) if tile is None else tile
-        if tt not in TILES:
-            raise ValueError(f"bath_force: no kernel for a tile of {tt}")
         shapes = [(op.bath.nc, op.MT.shape[0]) for op in self.ops]
-        plan = launch_plan(shapes, nph, tt)
-        if plan["smem_bytes"] > SMEM_LIMIT and tile is None:
-            # too wide for this tile: one trajectory per CTA
-            tt = 1
-            plan = launch_plan(shapes, nph, tt)
-        if plan["smem_bytes"] > SMEM_LIMIT:
-            raise ValueError(
-                f"bath_force: {plan['smem_bytes']} bytes of shared memory "
-                f"needed, {SMEM_LIMIT} available")
-        self.tile = tt
         allc = np.concatenate([np.asarray(op.bath.cids) for op in self.ops]
                               or [np.zeros(0, int)])
-        self.stages = []
+        disjoint = len(np.unique(allc)) == len(allc)
+        tt, plan, self.wide = choose_route(shapes, nph, ntraj, nsm, tile,
+                                           disjoint)
+        self.wide_pred = self.wide
+        self.tile = tt
+        # per stage the wide route's arguments, whose first member ``a``
+        # (in ``stages``) the tiled kernel takes
+        self.wides, self.stages = [], []
         for stage in (PRED, CORR, LAST):
-            a = _BfArgs()
+            w = _BwArgs()
+            a = w.a
             a.ntraj, a.nph, a.nb, a.nmd = ntraj, nph, len(baths), nmd
             a.t0, a.step = self.t0, self.word.ptr
             a.tt, a.stage = tt, stage
@@ -372,7 +459,7 @@ class BathForce:
             a.dt, a.hdt, a.dt2h = dt, dt / 2.0, dt * dt / 2.0
             for k in CTA_KEYS + ("staged",):
                 setattr(a, k, plan[k])
-            a.disjoint = int(len(np.unique(allc)) == len(allc))
+            a.disjoint = int(disjoint)
             a.need_h = int(any(op.has_h for op in self.ops))
             a.need_q = int(stage != CORR or
                            any(SRC_Q in op.srcs for op in self.ops))
@@ -399,7 +486,10 @@ class BathForce:
                     b.noise.data_ptr(), op.MT.data_ptr(), 0,
                     op.cids.data_ptr(), 0, nc, pb["ld"], op.MT.shape[0],
                     srcs[0], srcs[1], *(pb[k] for k in BATH_KEYS), op.s)
+            self.wides.append(w)
             self.stages.append(a)
+        if self.wide:
+            self._wide_scratch(shapes, allc)
 
         def pair():
             return torch.empty((2, ntraj, nph), dtype=torch.float32,
@@ -423,6 +513,38 @@ class BathForce:
         if self.lib.bath_force_threads() != THREADS:
             raise RuntimeError("bath_force: THREADS differs from the "
                                "kernel's")
+        if self.wide:
+            dims = (ctypes.c_int * 6)()
+            self.lib.bath_force_wide_dims(dims)
+            if list(dims) != [WIDE_THREADS, WIDE_ROWS, WIDE_TRAJ, WIDE_KC,
+                              WIDE_STAGES, self.wplan["ci_off"]]:
+                raise RuntimeError("bath_force: the wide route's shape "
+                                   "differs from the kernel's")
+
+    def _wide_scratch(self, shapes, allc):
+        """The wide route's plan and scratch, made once: the partial heat
+        currents, the tickets (zero; each launch leaves them zero) and the
+        flags of the bath DOFs."""
+        wp = self.wplan = wide_plan(shapes, self.ntraj)
+        if wp["smem_bytes"] > SMEM_LIMIT:
+            raise ValueError(
+                f"bath_force: {wp['smem_bytes']} bytes of shared memory "
+                f"needed, {SMEM_LIMIT} available")
+        dev = self.device
+        part = torch.zeros((wp["nprod"], WIDE_TRAJ), dtype=torch.float32,
+                           device=dev)
+        tickets = torch.zeros(len(shapes) * wp["ntiles"], dtype=torch.int32,
+                              device=dev)
+        bath_dof = torch.zeros(self.nph, dtype=torch.uint8, device=dev)
+        bath_dof[torch.as_tensor(allc, dtype=torch.long, device=dev)] = 1
+        self._wide_keep = (part, tickets, bath_dof)
+        for w in self.wides:
+            w.part, w.tickets = part.data_ptr(), tickets.data_ptr()
+            w.bath_dof = bath_dof.data_ptr()
+            w.nprod, w.ntiles = wp["nprod"], wp["ntiles"]
+            w.smem_bytes = wp["smem_bytes"]
+            for i, (n, p0) in enumerate(zip(wp["nrt"], wp["p0"])):
+                w.nrt[i], w.p0[i] = n, p0
 
     def _vec(self, t, name):
         """Device address of a state vector; this object's own outputs
@@ -457,8 +579,12 @@ class BathForce:
             if fb is not was[1]:
                 b.fb = 0 if fb is None else fb.data_ptr()
                 was[1] = fb
-        rc = self.lib.bath_force_f32(ctypes.byref(a),
-                                     build.current_stream(self.device))
+        stream = build.current_stream(self.device)
+        if self.wide and (stage != PRED or self.wide_pred):
+            rc = self.lib.bath_force_wide_f32(
+                ctypes.byref(self.wides[stage]), stream)
+        else:
+            rc = self.lib.bath_force_f32(ctypes.byref(a), stream)
         build.check(rc, "bath_force")
         launches += 1
         if a.tt <= 2 and not a.staged:
@@ -493,6 +619,11 @@ class BathForce:
         a = self.stages[PRED]
         mlr = ring.shape[1]
         a.mlr = mlr
+        # a ring of one row is read at the head and pushed on that same
+        # row: the wide route's CTAs would race there, the tiled kernel's
+        # (a trajectory each) do not
+        self.wide_pred = self.wide and (
+            mlr > 1 or not any(op.has_h for op in self.ops))
         a.push = ring.data_ptr()
         a.push_stride = mlr * nph
         a.cur, a.cur_stride = cur.data_ptr(), cur.stride(0)

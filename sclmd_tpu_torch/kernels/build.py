@@ -126,6 +126,10 @@ def load() -> ctypes.CDLL:
     lib.bath_force_f32.restype = ci
     lib.bath_force_threads.argtypes = []
     lib.bath_force_threads.restype = ci
+    lib.bath_force_wide_f32.argtypes = [vp, vp]
+    lib.bath_force_wide_f32.restype = ci
+    lib.bath_force_wide_dims.argtypes = [ctypes.POINTER(ci)]
+    lib.bath_force_wide_dims.restype = None
     lib.bath_force_noop.argtypes = [vp]
     lib.bath_force_noop.restype = ci
     lib.ch_force_f32.argtypes = [vp, vp]

@@ -428,6 +428,109 @@ def test_bath_force_routes_give_the_same_bits(cuda, tile):
         assert torch.equal(v, again[k]), k
 
 
+WIDE_NPH = 10368
+# the silicon slab's two end baths and a third of scattered DOFs in
+# descending order between them
+WIDE_SETS = (list(range(864)), list(range(WIDE_NPH - 864, WIDE_NPH)),
+             list(range(5003, 2000, -7)))
+
+
+@pytest.mark.parametrize("kinds", [
+    (("phonon", 1), ("phonon", 1)),
+    (("phonon", 12), ("biased",), ("phonon", 1))],
+    ids=["slab", "memory-biased-local"])
+@pytest.mark.parametrize("ntraj", [1, 3, 64, 65, 130])
+def test_bath_force_wide_route_matches_twin(cuda, kinds, ntraj):
+    """The wide route (the bath force as a product over trajectories) at
+    the silicon slab's width against the twins, all three stages and
+    every output: one trajectory, a ragged tile, the slab's 64, one
+    over a tile and more trajectories than SMs; wideband phonon baths
+    (K = nc), a memory-kernel bath with K6's tails (K = 2 nc) and a
+    biased electron bath (K = 3 nc) on scattered DOFs."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    before, wide = K7.launches, K7.launches_wide
+    force, _ = _k7_against_twin(cuda, kinds, ntraj, WIDE_SETS, nph=WIDE_NPH)
+    assert force.wide and force.wide_pred
+    assert K7.launches - before == K7.launches_wide - wide == 3
+
+
+def test_bath_force_wide_route_repeats_bitwise(cuda):
+    """One ``BathForce`` on the wide route: each stage run three times
+    on the same inputs, with a predictor of another step in between,
+    gives the same bits every time (the heat currents' ticket is left
+    at zero by every launch), one launch and one wide launch counted an
+    evaluation."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    kinds = (("phonon", 12), ("biased",), ("phonon", 1))
+    ntraj, nmd = 130, 32
+    baths = _k7_case(cuda, torch.float32, kinds, ntraj, WIDE_NPH, nmd,
+                     WIDE_SETS)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    p, q, pf, x = (torch.randn((ntraj, WIDE_NPH), device=cuda, generator=gen)
+                   for _ in range(4))
+    mask = torch.ones(WIDE_NPH, device=cuda)
+    mask[[4, 5000, 9600]] = 0.0
+    ring = torch.randn((ntraj, 13, WIDE_NPH), device=cuda, generator=gen)
+    tails = [torch.randn((ntraj, b.nc, 2), device=cuda, generator=gen)
+             if b.ml > 2 else None for b in baths]
+    force = K7.BathForce(baths, ntraj, WIDE_NPH, nmd, 0.4, cuda, t0=5)
+    assert force.wide
+    runs = []
+    for i in range(3):
+        rg = ring.clone()
+        cur = torch.zeros((ntraj, 4, len(baths)), device=cuda)
+        etot = torch.zeros((ntraj, 4), device=cuda)
+        fbs = [torch.zeros((ntraj, b.nc), device=cuda) for b in baths]
+        f = torch.zeros((ntraj, WIDE_NPH), device=cuda)
+        if i:
+            force.pred(p, q, pf, rg.clone(), 3, tails, cur.clone(),
+                       etot.clone())
+        before, wide = K7.launches, K7.launches_wide
+        ph, qt = force.pred(p, q, pf, rg, 2, tails, cur, etot, fbs)
+        pc, _ = force.corr(x, qt, pf, p, ph, tails, 2)
+        pl, ql = force.corr(x, qt, pf, p, ph, tails, 2, mask=mask, f_out=f)
+        torch.cuda.synchronize()
+        assert K7.launches - before == K7.launches_wide - wide == 3
+        runs.append([t.clone() for t in (ph, qt, pc, pl, ql, f, cur, etot,
+                                          rg, *fbs)])
+        assert bool(cur[:, 2].abs().sum() > 0)
+    for again in runs[1:]:
+        for k, (a, b) in enumerate(zip(runs[0], again)):
+            assert torch.equal(a, b), k
+
+
+def test_bath_force_wide_route_one_row_ring(cuda):
+    """A memory bath of ml 2 on the slab's width read through a history
+    ring of one row, whose head is also the push row: the wide route's
+    CTAs would race there, so the predictor runs the tiled kernel (and
+    agrees with the twin) while the correctors keep the wide route."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    ntraj, nmd = 5, 32
+    baths = _k7_case(cuda, torch.float32, (("phonon", 2), ("phonon", 1)),
+                     ntraj, WIDE_NPH, nmd, WIDE_SETS)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    p, q, pf = (torch.randn((ntraj, WIDE_NPH), device=cuda, generator=gen)
+                for _ in range(3))
+    ring = torch.randn((ntraj, 1, WIDE_NPH), device=cuda, generator=gen)
+    force = K7.BathForce(baths, ntraj, WIDE_NPH, nmd, 0.4, cuda, t0=3)
+    out = []
+    for kernel in (True, False):
+        rg = ring.clone()
+        cur = torch.zeros((ntraj, 1, 2), device=cuda)
+        etot = torch.zeros((ntraj, 1), device=cuda)
+        if kernel:
+            ph, qt = force.pred(p, q, pf, rg, 0, [None, None], cur, etot)
+            torch.cuda.synchronize()
+            assert force.wide and not force.wide_pred
+        else:
+            ph, qt = K7.pred_plain(p, q, pf, rg, 0, 0, force.ops,
+                                   [None, None], 3, 0.4, cur[:, 0],
+                                   etot[:, 0])
+        out.append((ph, qt, cur, etot, rg))
+    for a, b in zip(*out):
+        assert _rel(a, b) < 1e-5
+
+
 def test_bath_force_outputs_outlive_two_stages(cuda):
     """What a stage returns is still intact after the next two stages
     and after the next call of the same stage; the call after that

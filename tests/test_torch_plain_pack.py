@@ -240,3 +240,99 @@ def test_stream_plan_covers_every_row_and_tap(baths, ntraj, nsm):
         cover[bi][r0:r1, a0:a0 + ra] += 1
     for cov in cover:
         assert (cov[2:] == 1).all() and (cov[:2] == 0).all()
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.tuples(st.integers(1, 300), st.integers(1, 3)),
+                min_size=1, max_size=4), st.integers(0, 400),
+       st.integers(1, 200), st.randoms(use_true_random=False))
+def test_wide_plan_owns_every_bath_row_and_free_dof_once(baths, free, ntraj,
+                                                        rnd):
+    """K7's wide route at nc 1-300, K = nc, 2 nc or 3 nc, 1-4 disjoint
+    baths on scattered DOFs, 1-200 trajectories: every (bath, row,
+    trajectory) belongs to exactly one product CTA, every DOF of no bath
+    of every trajectory to exactly one update CTA, no CTA owns nothing,
+    and shared memory fits."""
+    shapes = [(nc, nc * m) for nc, m in baths]
+    nph = sum(nc for nc, _ in shapes) + free
+    dofs = list(range(nph))
+    rnd.shuffle(dofs)
+    cids, at = [], 0
+    for nc, _ in shapes:
+        cids.append(dofs[at:at + nc])
+        at += nc
+    plan = K7.wide_plan(shapes, ntraj)
+    assert plan["smem_bytes"] <= K7.SMEM_LIMIT
+    assert plan["grid"] == plan["nprod"] + ntraj
+    rows = [np.zeros((nc, ntraj), int) for nc, _ in shapes]
+    dof = np.zeros((ntraj, nph), int)
+    for i in range(plan["grid"]):
+        kind, *own = K7.wide_cta(plan, ntraj, shapes, i)
+        if kind == "product":
+            b, r, t = own
+            assert len(r) and len(t) and len(r) <= K7.WIDE_ROWS and \
+                len(t) <= K7.WIDE_TRAJ
+            rows[b][r.start:r.stop, t.start:t.stop] += 1
+        else:
+            (t,) = own
+            dof[t] += 1
+            dof[t, [c for cs in cids for c in cs]] -= 1
+    for r in rows:
+        assert (r == 1).all()
+    bath = np.zeros(nph, bool)
+    bath[[c for cs in cids for c in cs]] = True
+    assert (dof[:, ~bath] == 1).all() and (dof[:, bath] == 0).all()
+
+
+SLAB = ([(864, 864), (864, 864)], 10368)
+
+
+def test_wide_plan_fills_the_card_at_the_slab():
+    """The silicon slab at its 64 trajectories: 2 x 54 product CTAs of
+    16 rows and all 64 trajectories (each operand element read once a
+    launch) and 64 update CTAs, at least one CTA per SM of the H100's
+    132; two CTAs fit an SM's shared memory."""
+    plan = K7.wide_plan(SLAB[0], 64)
+    assert plan["nrt"] == [54, 54] and plan["ntiles"] == 1
+    assert plan["nprod"] == 108 and plan["grid"] == 172 >= 132
+    assert plan["smem_bytes"] == 4 * (plan["ci_off"] + 864)
+    assert 2 * plan["smem_bytes"] <= K7.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("ntraj,tile", [(1, None), (3, None), (64, None),
+                                        (65, None), (130, None), (5, 2),
+                                        (300, None), (1024, None)])
+def test_the_silicon_slab_takes_the_wide_route(ntraj, tile):
+    """The slab's shapes take the wide route at every batch and at a
+    forced tile of two; baths that share a DOF keep the tiled kernel's
+    unstaged form."""
+    tt, plan, wide = K7.choose_route(*SLAB, ntraj, 132, tile)
+    assert wide and tt <= 2 and plan["staged"] == 0
+    assert plan == K7.launch_plan(*SLAB, tt)
+    assert not K7.choose_route(*SLAB, ntraj, 132, tile, disjoint=False)[2]
+
+
+def test_staged_systems_keep_the_tiled_kernel():
+    """The flagship at 128 and 1,024 trajectories, the primary chain at
+    md.Run's one and 37, the gold slab at 64 and a 1,270-atom C/H ribbon
+    with two 150-DOF electron baths at 32: no wide route, and
+    ``launch_plan``'s plan at ``tile_size``'s tile, as before the wide
+    route existed."""
+    from sclmd_tpu_torch.tools import flagship as F
+    from sclmd_tpu_torch.tools import primary as P
+    cases = []
+    for runner, nph, counts in (
+            (F.flagship_runner(torch.float64, "cpu", "unused"), 603,
+             (128, 1024)),
+            (P.primary_runner(torch.float64, "cpu", "unused"), 300, (1, 37))):
+        shapes = [(op.bath.nc, op.MT.shape[0])
+                  for op in K7.pack_operands(runner.baths)]
+        cases += [(shapes, nph, n) for n in counts]
+    cases += [([(432, 432), (432, 432)], 5184, 64),
+              ([(150, 150), (150, 150)], 3 * 1270, 32)]
+    for shapes, nph, ntraj in cases:
+        tt, plan, wide = K7.choose_route(shapes, nph, ntraj, 132)
+        assert not wide
+        assert tt == K7.tile_size(ntraj, 132)
+        assert plan == K7.launch_plan(shapes, nph, tt)
+        assert plan["staged"] == (tt <= 2)
