@@ -30,6 +30,7 @@ import torch
 
 from sclmd_tpu_torch import units as U
 from sclmd_tpu_torch.models.driver import Consts, DriverShell
+from sclmd_tpu_torch.utils import profiling
 
 # published Sutton-Chen fcc parameter sets (public constants);
 # eps in eV, a = fcc lattice constant in Ang, c dimensionless
@@ -333,6 +334,13 @@ class EAMDriver(DriverShell):
     n and m that are not small integers take powf in the kernel); float64
     keeps the autograd of the energy on either device."""
 
+    # the card's force_torch launches K10 (the slot transpose, the centre
+    # pass and the gather) into scratch made at the first call and kept,
+    # with its output from the caching allocator and no host sync (the
+    # tabulated route's spline tables go to the card at construction):
+    # md.run_segment may replay it inside a CUDA graph (md.graph_plan)
+    capturable = True
+
     def __init__(self, axyz, setfl=None, cutoff_skin=0.3, max_nnei=None,
                  cell=None, dtype=torch.float64, params=None, rcut=None,
                  device=None):
@@ -340,40 +348,41 @@ class EAMDriver(DriverShell):
 
         els = [a[0] for a in axyz]
         x0 = np.array([a[1:] for a in axyz], dtype=float)
-        if setfl is not None:
-            if rcut is not None or params is not None:
-                raise ValueError(
-                    "rcut=/params= apply to the analytic Sutton-Chen "
-                    "path only; the setfl table fixes its own cutoff "
-                    "and functions")
-            table = setfl if isinstance(setfl, dict) else read_setfl(setfl)
-            missing = sorted(set(els) - set(table["elements"]))
-            if missing:
-                raise ValueError(f"setfl lacks elements {missing}")
-            types = np.array([table["elements"].index(e) for e in els],
-                             np.int32)
-            rc = table["cutoff"]
-            nbr, nmask = build_neighbors(x0, rc, max_nnei, cell=cell,
-                                         skin=cutoff_skin)
-            efn = eam_tabulated_energy(table, types, nbr, nmask,
-                                       cell=cell)
-            self.table = table
-        else:
-            uniq = sorted(set(els))
-            if len(uniq) != 1:
-                raise NotImplementedError(
-                    "analytic Sutton-Chen is single-element; pass a "
-                    "setfl table for alloys")
-            p = dict(SUTTON_CHEN_PARAMS[uniq[0]]) if params is None \
-                else dict(params)
-            rc = float(rcut if rcut is not None
-                       else p.get("rcut", 1.7 * p["a"]))
-            nbr, nmask = build_neighbors(x0, rc, max_nnei, cell=cell,
-                                         skin=cutoff_skin)
-            efn = sutton_chen_energy(uniq[0], nbr, nmask, cell=cell,
-                                     params=p, rcut=rc)
-            self.table = None
-        self._attach(efn, axyz, dtype, device)
-        if dtype == torch.float32:
-            from sclmd_tpu_torch.kernels.eam_force import EAMForce
-            self._use_kernel(EAMForce(efn.terms, self._drv))
+        with profiling.span("setup/driver"):
+            if setfl is not None:
+                if rcut is not None or params is not None:
+                    raise ValueError(
+                        "rcut=/params= apply to the analytic Sutton-Chen "
+                        "path only; the setfl table fixes its own cutoff "
+                        "and functions")
+                table = setfl if isinstance(setfl, dict) else read_setfl(setfl)
+                missing = sorted(set(els) - set(table["elements"]))
+                if missing:
+                    raise ValueError(f"setfl lacks elements {missing}")
+                types = np.array([table["elements"].index(e) for e in els],
+                                 np.int32)
+                rc = table["cutoff"]
+                nbr, nmask = build_neighbors(x0, rc, max_nnei, cell=cell,
+                                             skin=cutoff_skin)
+                efn = eam_tabulated_energy(table, types, nbr, nmask,
+                                           cell=cell)
+                self.table = table
+            else:
+                uniq = sorted(set(els))
+                if len(uniq) != 1:
+                    raise NotImplementedError(
+                        "analytic Sutton-Chen is single-element; pass a "
+                        "setfl table for alloys")
+                p = dict(SUTTON_CHEN_PARAMS[uniq[0]]) if params is None \
+                    else dict(params)
+                rc = float(rcut if rcut is not None
+                           else p.get("rcut", 1.7 * p["a"]))
+                nbr, nmask = build_neighbors(x0, rc, max_nnei, cell=cell,
+                                             skin=cutoff_skin)
+                efn = sutton_chen_energy(uniq[0], nbr, nmask, cell=cell,
+                                         params=p, rcut=rc)
+                self.table = None
+            self._attach(efn, axyz, dtype, device)
+            if dtype == torch.float32:
+                from sclmd_tpu_torch.kernels.eam_force import EAMForce
+                self._use_kernel(EAMForce(efn.terms, self._drv))

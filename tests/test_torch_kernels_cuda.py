@@ -1020,11 +1020,12 @@ def test_run_segment_graph_matches_eager_ch_flagship(cuda, monkeypatch,
                          250, {"launches.K5": 2, "launches.K7": 3})
 
 
-def _sw_slab_system(cuda, tmp_path, cells, ntraj=64, nmd=256):
-    """The silicon slab of ``tools.slab`` cut to ``cells`` (K9 twice a
-    step, K7 three times), its baths' noise and a start drawn here."""
+def _slab_system(cuda, tmp_path, cells, kind="sw", ntraj=64, nmd=256):
+    """A slab of ``tools.slab`` cut to ``cells``: silicon (``kind`` "sw",
+    K9 twice a step) or gold ("eam" or "eam_tab", K10 twice a step), K7
+    three times; its baths' noise and a start drawn here."""
     from sclmd_tpu_torch.tools import slab as SL
-    r = SL.slab_runner("sw", torch.float32, cuda, str(tmp_path), cells=cells,
+    r = SL.slab_runner(kind, torch.float32, cuda, str(tmp_path), cells=cells,
                        nmd=nmd)
     system = r._build_system()
     gen = torch.Generator(device=cuda).manual_seed(ntraj)
@@ -1047,7 +1048,7 @@ def test_run_segment_graph_matches_eager_sw_slab(cuda, monkeypatch, tmp_path,
     unstaged route)."""
     from sclmd_tpu_torch.kernels import bath_force as K7
     from sclmd_tpu_torch.kernels import step_graph as SG
-    system, st = _sw_slab_system(cuda, tmp_path, cells)
+    system, st = _slab_system(cuda, tmp_path, cells)
     wide = K7.launches_wide
     nsteps = 2 * SG.GRAPH_STEPS + 3
     _graph_against_eager(monkeypatch, system, st, nsteps, 250,
@@ -1062,7 +1063,7 @@ def test_sw_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
     a launch counted: what the benchmark's K9 and K7 rooflines compare."""
     from sclmd_tpu_torch.kernels import step_graph as SG
     from sclmd_tpu_torch.utils import profiling as P
-    system, st = _sw_slab_system(cuda, tmp_path, (4, 2, 2))
+    system, st = _slab_system(cuda, tmp_path, (4, 2, 2))
     nsteps = 3 * SG.GRAPH_STEPS + 1
     TMD.run_segment(system, st, nsteps, t0=0)          # scratch, capture
     torch.cuda.synchronize()
@@ -1088,6 +1089,58 @@ def test_sw_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
         seen[k] = sum(k in n for n in names)
     assert seen == {"slot_transpose_kernel": k9, "sw_centre_kernel": k9,
                     "slot_gather_kernel": k9, "bath_force_kernel": k7}
+
+
+@pytest.mark.parametrize("kind", ["eam", "eam_tab"])
+@pytest.mark.parametrize("cells", [(4, 4, 4), (12, 6, 6)])
+def test_run_segment_graph_matches_eager_eam_slab(cuda, monkeypatch,
+                                                  tmp_path, cells, kind):
+    """The gold slab (``EAMDriver``, marked capturable) at 64
+    trajectories over two whole groups and three steps, K10 analytic and
+    tabulated: cut to 4 x 4 x 4 cells and whole (nph 5,184: K7 still
+    staged, no launch on its wide route)."""
+    from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    system, st = _slab_system(cuda, tmp_path, cells, kind=kind)
+    wide = K7.launches_wide
+    _graph_against_eager(monkeypatch, system, st, 2 * SG.GRAPH_STEPS + 3,
+                         250, {"launches.K10": 2, "launches.K7": 3})
+    assert K7.launches_wide == wide
+
+
+def test_eam_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
+    """Under replay the profiler sees each of K10's three kernels once an
+    evaluation the program counts (``launches.K10``), and K7's kernel
+    once a launch counted: what the benchmark's K10 and K7 rooflines
+    compare."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.utils import profiling as P
+    system, st = _slab_system(cuda, tmp_path, (4, 4, 4), kind="eam")
+    nsteps = 3 * SG.GRAPH_STEPS + 1
+    TMD.run_segment(system, st, nsteps, t0=0)          # scratch, capture
+    torch.cuda.synchronize()
+    before = P.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        TMD.run_segment(system, st, nsteps, t0=0)
+        torch.cuda.synchronize()
+    after = P.counters()
+    assert after["steps_graphed"] - before["steps_graphed"] == \
+        3 * SG.GRAPH_STEPS
+    k10 = after["launches.K10"] - before["launches.K10"]
+    k7 = after["launches.K7"] - before["launches.K7"]
+    assert k10 == 2 * nsteps and k7 == 3 * nsteps
+    import json
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    seen = {}
+    for k in ("slot_transpose_kernel", "eam_centre_kernel",
+              "slot_gather_kernel", "bath_force_kernel"):
+        seen[k] = sum(k in n for n in names)
+    assert seen == {"slot_transpose_kernel": k10, "eam_centre_kernel": k10,
+                    "slot_gather_kernel": k10, "bath_force_kernel": k7}
 
 
 def test_flagship_ensemble_files_behind_the_card(cuda, tmp_path):

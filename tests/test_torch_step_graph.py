@@ -117,13 +117,11 @@ def test_graph_plan_engages_where_safe(case, engages):
 
 
 def test_ch_driver_is_marked_capturable():
-    """``CHDriver`` (K5 on the card) is marked; the EAM driver and the
-    Tersoff driver are not, and keep the eager step."""
-    from sclmd_tpu_torch.models.eam import EAMDriver
+    """``CHDriver`` (K5 on the card) is marked; the Tersoff driver is
+    not, and keeps the eager step."""
     from sclmd_tpu_torch.models.tersoff import TersoffDriver
     assert CHDriver.capturable is True
-    for cls in (TersoffDriver, EAMDriver):
-        assert not getattr(cls, "capturable", False)
+    assert not getattr(TersoffDriver, "capturable", False)
 
 
 def test_sw_driver_is_marked_capturable():
@@ -217,3 +215,15 @@ def test_step_word_offsets():
     word = SG.StepWord("cpu", base=9)
     assert word.t.dtype == torch.int32 and int(word.t[0]) == 9
     assert [word.off(s) for s in (0, 9, 12)] == [-9, 0, 3]
+
+
+def test_eam_driver_is_marked_capturable():
+    """``EAMDriver`` (K10 on the card, both routes: the same launch into
+    kept scratch as K9, its output from the caching allocator, no host
+    sync) is marked, so the graph engages for its bound force."""
+    from sclmd_tpu_torch.models.eam import EAMDriver
+    assert EAMDriver.capturable is True
+    drv = EAMDriver.__new__(EAMDriver)
+    plan = TMD.graph_plan(_system(force_fn=drv.force_torch), _on("cuda"),
+                          4 * G + 3)
+    assert plan == SG.group_plan(4 * G + 3)
