@@ -243,13 +243,17 @@ class SlotForceCuda:
     whether a slot's gradient is a scalar times its vector (``scalar``:
     g holds the scalar), fills its own fields in ``_fill`` and gives a
     warp's shared memory for a pack in ``smem_per_warp``; ``_count``
-    adds one to its launch counter."""
+    adds one to its launch counter. A route that needs no slot array and
+    no gather sets ``slot_scratch`` False (g, ftail and live are then
+    left out); ``more_scratch`` gives scratch of its own, set on the
+    argument struct's fields of the same names."""
 
     name = "slot_force"
     entry = None
     args_type = None
     keep = 0
     scalar = False
+    slot_scratch = True
 
     def __init__(self, pack: dict, device):
         device = torch.device(device)
@@ -296,12 +300,16 @@ class SlotForceCuda:
     def _count(self):
         raise NotImplementedError
 
+    def more_scratch(self, tp: int, buf) -> dict:
+        return {}
+
     def scratch(self, tp: int, wide: bool) -> dict:
         """The scratch of a batch of stride ``tp`` (made at its first
         call, kept)."""
         key = (tp, bool(wide))
         if key not in self._scratch:
             ns, na = self.pack["ns"], self.pack["na"]
+            per = int(self.slot_scratch)
 
             def buf(n, dtype=torch.float32):
                 return torch.empty(max(n, 1), dtype=dtype,
@@ -309,10 +317,11 @@ class SlotForceCuda:
 
             self._scratch[key] = dict(
                 u=buf(self.nph * tp),
-                g=buf((1 if self.scalar else 3) * ns * tp),
-                ftail=buf(self.nph * tp), ecen=buf(na * tp),
-                live=buf(tp // LANES * ns, torch.uint8),
-                scr=buf(self.keep * ns * tp) if wide and self.keep else None)
+                g=buf(per * (1 if self.scalar else 3) * ns * tp),
+                ftail=buf(per * self.nph * tp), ecen=buf(na * tp),
+                live=buf(per * tp // LANES * ns, torch.uint8),
+                scr=buf(self.keep * ns * tp) if wide and self.keep else None,
+                **self.more_scratch(tp, buf))
         return self._scratch[key]
 
     def __call__(self, q: torch.Tensor, energy: bool = False):
@@ -334,7 +343,8 @@ class SlotForceCuda:
         a.s.q, a.s.f = q2.data_ptr(), f.data_ptr()
         a.s.e = e.data_ptr() if energy else None
         for k, v in sc.items():
-            setattr(a.s, k, None if v is None else v.data_ptr())
+            setattr(a.s if hasattr(a.s, k) else a, k,
+                    None if v is None else v.data_ptr())
         a.s.ntraj, a.s.tp = n, tp
         a.s.wpb, a.s.wide = plan.wpb, int(plan.wide)
         rc = getattr(self.lib, self.entry)(ctypes.byref(a),

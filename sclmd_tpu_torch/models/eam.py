@@ -334,11 +334,12 @@ class EAMDriver(DriverShell):
     n and m that are not small integers take powf in the kernel); float64
     keeps the autograd of the energy on either device."""
 
-    # the card's force_torch launches K10 (the slot transpose, the centre
-    # pass and the gather) into scratch made at the first call and kept,
-    # with its output from the caching allocator and no host sync (the
-    # tabulated route's spline tables go to the card at construction):
-    # md.run_segment may replay it inside a CUDA graph (md.graph_plan)
+    # the card's force_torch launches K10 (the slot transpose and its two
+    # passes on a symmetric table, or the centre pass and the gather) into
+    # scratch made at the first call and kept, with its output from the
+    # caching allocator and no host sync (the tabulated route's spline
+    # tables go to the card at construction): md.run_segment may replay it
+    # inside a CUDA graph (md.graph_plan)
     capturable = True
 
     def __init__(self, axyz, setfl=None, cutoff_skin=0.3, max_nnei=None,

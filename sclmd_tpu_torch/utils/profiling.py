@@ -55,7 +55,8 @@ MDE.npz checkpoints; ``files_behind``: the kappa files of those
 the kernels' launch counters, each a plain integer global
 of its module registered once at import (``register``):
 ``launches.K7`` is ``kernels.bath_force.launches`` (``launches.K9`` and
-``launches.K10`` count evaluations, three kernels each). They count
+``launches.K10`` count evaluations, three kernels each;
+``launches.K10_sym`` those of K10 on its symmetric route). They count
 kernel executions: a graph replay adds the launches it holds.
 
 Reports. ``md.RunEnsemble`` and ``md.Run`` each run inside ``call``,

@@ -1091,28 +1091,39 @@ def test_sw_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
                     "slot_gather_kernel": k9, "bath_force_kernel": k7}
 
 
+@pytest.mark.parametrize("route", ["sym", "general"])
 @pytest.mark.parametrize("kind", ["eam", "eam_tab"])
 @pytest.mark.parametrize("cells", [(4, 4, 4), (12, 6, 6)])
 def test_run_segment_graph_matches_eager_eam_slab(cuda, monkeypatch,
-                                                  tmp_path, cells, kind):
+                                                  tmp_path, cells, kind,
+                                                  route):
     """The gold slab (``EAMDriver``, marked capturable) at 64
     trajectories over two whole groups and three steps, K10 analytic and
-    tabulated: cut to 4 x 4 x 4 cells and whole (nph 5,184: K7 still
-    staged, no launch on its wide route)."""
+    tabulated, on its symmetric route and with the general route forced
+    (the table's check answering no): cut to 4 x 4 x 4 cells and whole
+    (nph 5,184: K7 still staged, no launch on its wide route)."""
     from sclmd_tpu_torch.kernels import bath_force as K7
+    from sclmd_tpu_torch.kernels import eam_force as K10
     from sclmd_tpu_torch.kernels import step_graph as SG
-    system, st = _slab_system(cuda, tmp_path, cells, kind=kind)
+    with monkeypatch.context() as m:
+        if route == "general":
+            m.setattr(K10, "symmetric_table", lambda pack: False)
+        system, st = _slab_system(cuda, tmp_path, cells, kind=kind)
     wide = K7.launches_wide
     _graph_against_eager(monkeypatch, system, st, 2 * SG.GRAPH_STEPS + 3,
-                         250, {"launches.K10": 2, "launches.K7": 3})
+                         250, {"launches.K10": 2, "launches.K7": 3,
+                               "launches.K10_sym": 2 if route == "sym"
+                               else 0})
     assert K7.launches_wide == wide
 
 
 def test_eam_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
-    """Under replay the profiler sees each of K10's three kernels once an
-    evaluation the program counts (``launches.K10``), and K7's kernel
-    once a launch counted: what the benchmark's K10 and K7 rooflines
-    compare."""
+    """Under replay the profiler sees K10's three kernels once each an
+    evaluation the program counts (``launches.K10``, all of them on the
+    symmetric route, ``launches.K10_sym``): the transpose and the two
+    passes whose names hold ``eam_centre_kernel``, and no gather; and
+    K7's kernel once a launch counted: what the benchmark's K10 and K7
+    rooflines compare."""
     from sclmd_tpu_torch.kernels import step_graph as SG
     from sclmd_tpu_torch.utils import profiling as P
     system, st = _slab_system(cuda, tmp_path, (4, 4, 4), kind="eam")
@@ -1130,6 +1141,7 @@ def test_eam_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
     k10 = after["launches.K10"] - before["launches.K10"]
     k7 = after["launches.K7"] - before["launches.K7"]
     assert k10 == 2 * nsteps and k7 == 3 * nsteps
+    assert after["launches.K10_sym"] - before["launches.K10_sym"] == k10
     import json
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     with open(tmp_path / "trace.json") as f:
@@ -1137,10 +1149,16 @@ def test_eam_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
     seen = {}
     for k in ("slot_transpose_kernel", "eam_centre_kernel",
+              "eam_centre_kernel_rho", "eam_centre_kernel_force",
               "slot_gather_kernel", "bath_force_kernel"):
         seen[k] = sum(k in n for n in names)
-    assert seen == {"slot_transpose_kernel": k10, "eam_centre_kernel": k10,
-                    "slot_gather_kernel": k10, "bath_force_kernel": k7}
+    assert seen == {"slot_transpose_kernel": k10,
+                    "eam_centre_kernel": 2 * k10,
+                    "eam_centre_kernel_rho": k10,
+                    "eam_centre_kernel_force": k10,
+                    "slot_gather_kernel": 0, "bath_force_kernel": k7}
+    assert seen["slot_transpose_kernel"] + seen["eam_centre_kernel"] + \
+        seen["slot_gather_kernel"] == 3 * k10
 
 
 def test_flagship_ensemble_files_behind_the_card(cuda, tmp_path):
@@ -1441,15 +1459,20 @@ def test_slot_forces_match_float64_twin(cuda, kind, kw, ntraj):
     mod = K9 if kind.startswith("si") else K10
     drv, ref = _slot_pair(kind, cuda, **kw)
     assert drv.kernel.cuda is not None
+    # K10 takes its symmetric route on a full table, the general one on a
+    # truncated table
+    sym = mod is K10 and "max_nnei" not in kw
+    assert mod is K9 or drv.kernel.cuda.pack["sym"] == sym
     gen = torch.Generator(device=cuda).manual_seed(ntraj)
     conv = torch.as_tensor(drv.conv, dtype=torch.float32, device=cuda)
     q = 0.1 * torch.randn((ntraj, 3 * drv.number), device=cuda,
                           generator=gen) / conv
-    before = mod.launches
+    before, before_sym = mod.launches, K10.launches_sym
     e, f = drv.energy_force_torch(q)
     f2 = drv.force_torch(q)
     torch.cuda.synchronize()
     assert mod.launches == before + 2
+    assert K10.launches_sym == before_sym + (2 if sym else 0)
     assert torch.equal(f, f2)
     ew, fw = ref.energy_force_torch(q.double().cpu())
     assert _rel(f, fw) < 1e-4
@@ -1506,17 +1529,21 @@ def test_sw_force_divergent_lanes_keep_their_bits(cuda):
     assert _rel(f, ref.force_torch(q.double().cpu())) < 1e-4
 
 
-@pytest.mark.parametrize("kind", ["si", "si_trunc", "au", "au_tab"])
+@pytest.mark.parametrize("kind", ["si", "si_trunc", "au", "au_tab",
+                                  "au_trunc"])
 def test_slot_force_launch_shapes_give_the_same_bits(cuda, kind):
-    """Every launch shape of the centre pass (1, 2 or 4 centres a block,
-    and the wide route: rows from global memory, K9's kept entries in a
-    global scratch) gives the same bits, at 37 and 64
-    trajectories; the scratch is kept per trajectory stride and the
-    force is a tensor of its own at every call."""
+    """Every launch shape of the centre passes (1, 2 or 4 centres a
+    block, and the wide route: rows from global memory, K9's kept entries
+    in a global scratch) gives the same bits, force and energy, at 37 and
+    64 trajectories (K10 on its symmetric route on the full tables, the
+    general one truncated); the scratch is kept per trajectory stride and
+    the force is a tensor of its own at every call."""
     from sclmd_tpu_torch.kernels import slots
-    drv, _ = _slot_pair(kind.replace("_trunc", ""), cuda,
-                        **(dict(max_nnei=10) if "trunc" in kind else {}))
+    drv, _ = _slot_pair(kind.replace("_trunc", ""), cuda, **(
+        dict(max_nnei=10 if kind == "si_trunc" else 30) if "trunc" in kind
+        else {}))
     kern = drv.kernel.cuda
+    assert kind.startswith("si") or kern.pack["sym"] == ("trunc" not in kind)
     gen = torch.Generator(device=cuda).manual_seed(5)
     conv = torch.as_tensor(drv.conv, dtype=torch.float32, device=cuda)
     for n in (37, 64):
@@ -1534,6 +1561,64 @@ def test_slot_force_launch_shapes_give_the_same_bits(cuda, kind):
             assert got[1].data_ptr() != want[1].data_ptr()
         kern.plan = slots.launch_plan(kern.smem_per_warp(kern.pack))
     assert {k[0] for k in kern._scratch} == {32, 64}
+
+
+def _eam_routes(kind, cuda):
+    """A float32 ``EAMDriver`` of ``_slot_pair`` on the card (its kernel
+    on the symmetric route), the general route's kernel built on the same
+    table, and 64 trajectories of 0.1 angstrom rms."""
+    from sclmd_tpu_torch.kernels import eam_force as K10
+    drv, _ = _slot_pair(kind, cuda)
+    kern = drv.kernel.cuda
+    assert kern.pack["sym"]
+    general = K10.EAMForceCuda(dict(kern.pack, sym=False), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    conv = torch.as_tensor(drv.conv, dtype=torch.float32, device=cuda)
+    q = 0.1 * torch.randn((64, 3 * drv.number), device=cuda,
+                          generator=gen) / conv
+    return kern, general, q
+
+
+@pytest.mark.parametrize("kind", ["au", "au_tab", "alloy"])
+def test_eam_symmetric_route_matches_float64_twin(cuda, kind):
+    """K10's symmetric route (analytic, tabulated, two elements) against
+    its float64 twin (``symmetric_force_numpy``, f0 its own force at
+    rest) within 1e-4 of the largest force and 1e-5 of the largest
+    energy, and against the general route's kernel on the same table
+    (float32 both, summed in other orders) within 1e-5 and 1e-6: three
+    launches an evaluation either way, one counted each."""
+    from sclmd_tpu_torch.kernels import eam_force as K10
+    kern, general, q = _eam_routes(kind, cuda)
+    before, before_sym = K10.launches, K10.launches_sym
+    e, f = kern(q, energy=True)
+    eg, fg = general(q, energy=True)
+    torch.cuda.synchronize()
+    assert (K10.launches, K10.launches_sym) == (before + 2, before_sym + 1)
+    qn = q.double().cpu().numpy()
+    _, f0 = K10.symmetric_force_numpy(kern.pack, np.zeros((1, qn.shape[1])))
+    ew, fw = K10.symmetric_force_numpy(kern.pack, qn, f0=f0[0])
+    assert _rel(f, torch.as_tensor(fw)) < 1e-4
+    assert _rel(e, torch.as_tensor(ew)) < 1e-5
+    assert _rel(f, fg) < 1e-5
+    assert _rel(e, eg) < 1e-6
+
+
+@pytest.mark.parametrize("kind", ["au", "au_tab", "alloy"])
+def test_eam_symmetric_route_keeps_its_bits(cuda, kind):
+    """On the symmetric route a trajectory's force and energy have the
+    same bits in batches of 1, 33 and 64; two calls agree bitwise; the
+    energy comes on request, before and after calls without it (the last
+    block's counter is reset by each call that uses it)."""
+    kern, _, q = _eam_routes(kind, cuda)
+    e, f = kern(q, energy=True)
+    assert torch.equal(kern(q), f)
+    e2, f2 = kern(q, energy=True)
+    assert torch.equal(f2, f) and torch.equal(e2, e)
+    for n in (1, 33):
+        en, fn = kern(q[:n], energy=True)
+        assert torch.equal(fn, f[:n]) and torch.equal(en, e[:n]), n
+        assert torch.equal(kern(q[:n]), f[:n]), n
+    assert torch.isfinite(e).all() and (e < 0).all()
 
 
 def test_slot_forces_refuse_what_the_kernel_does_not_take(cuda):

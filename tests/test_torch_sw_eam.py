@@ -400,6 +400,8 @@ def _formula_case(kind):
         drv = TS.SWDriver([["Si", *p] for p in pos], device="cpu", **kw)
         return drv, K9.pack_operands(drv.energy_fn.terms, drv.xyz,
                                      drv.conv), K9
+    if kind.startswith("gold"):
+        return _gold_case(kind)
     pos, cell = TE.fcc_cell(3, 3, 3, 3.61)
     els = ("Cu", "Ag") if kind == "eam_alloy" else ("Cu",)
     axyz = [[els[i % len(els)], *p] for i, p in enumerate(pos)]
@@ -419,9 +421,30 @@ def _formula_case(kind):
                                   drv.conv), K10
 
 
+def _gold_case(kind, cells=(4, 4, 4)):
+    """The gold slab of ``tools.slab`` cut to ``cells`` (periodic, full
+    rows: a symmetric table) as a float64 CPU driver and K10's pack:
+    "gold" analytic, "gold_tab" tabulated, "gold_alloy" a two-element
+    setfl table (Au and Ag alternating on its sites)."""
+    from sclmd_tpu_torch.tools import slab as SL
+    if kind == "gold_alloy":
+        axyz, cell = SL.gold_slab(*cells)
+        els = ("Au", "Ag")
+        axyz = [[els[i % 2], *a[1:]] for i, a in enumerate(axyz)]
+        drv = TE.EAMDriver(axyz, cell=cell, device="cpu", setfl=dict(
+            _alloy(els), nrho=500, nr=500,
+            pair_index=np.array([[0, 1], [1, 2]], np.int32)))
+    else:
+        drv = SL.slab_driver("eam" if kind == "gold" else "eam_tab",
+                             torch.float64, "cpu", cells=cells)
+    return drv, K10.pack_operands(drv.energy_fn.terms, drv.xyz,
+                                  drv.conv), K10
+
+
 @pytest.mark.parametrize("kind", ["sw", "sw_open", "sw_truncated", "sw_real",
                                   "eam_sc", "eam_open", "eam_truncated",
-                                  "eam_real", "eam_tab", "eam_alloy"])
+                                  "eam_real", "eam_tab", "eam_alloy", "gold",
+                                  "gold_tab", "gold_alloy"])
 def test_kernel_formulas_match_autograd(kind):
     """K9's and K10's arithmetic (numpy, float64, per slot from the
     centre's own row, then the gather) against the autograd twin at
@@ -441,6 +464,89 @@ def test_kernel_formulas_match_autograd(kind):
     _, rest = mod.analytic_force_numpy(pack, np.zeros((2, 3 * drv.number)),
                                        f0=f0[0])
     assert not rest.any()
+
+
+@pytest.mark.parametrize("kind", ["eam_sc", "eam_open", "eam_real",
+                                  "eam_tab", "eam_alloy", "gold", "gold_tab",
+                                  "gold_alloy"])
+def test_symmetric_route_matches_autograd_and_general(kind):
+    """K10's symmetric route (``symmetric_force_numpy``: each atom's
+    force from its own row and its neighbours' F'(rho_j), no gather) on
+    full tables, analytic and tabulated, one and two elements: the pack
+    takes the route, and its force and energy agree with the autograd
+    twin and with the general route's formulas within 1e-12 of the
+    largest at 0.1 angstrom rms; exactly zero at rest with its own f0."""
+    drv, pack, _ = _formula_case(kind)
+    assert pack["sym"]
+    q = 0.1 * np.random.default_rng(9).normal(size=(3, 3 * drv.number)) \
+        / drv.conv
+    e, f = K10.symmetric_force_numpy(pack, q)
+    qt = torch.as_tensor(q)
+    fw = drv._drv._abs_force(qt).numpy()
+    tol = 1e-12 * np.abs(fw).max()
+    np.testing.assert_allclose(f, fw, rtol=0, atol=tol)
+    np.testing.assert_allclose(e, drv.energy_torch(qt).detach().numpy(),
+                               rtol=1e-12)
+    eg, fg = K10.analytic_force_numpy(pack, q)
+    np.testing.assert_allclose(f, fg, rtol=0, atol=tol)
+    np.testing.assert_allclose(e, eg, rtol=1e-12)
+    _, f0 = K10.symmetric_force_numpy(pack, np.zeros((1, 3 * drv.number)))
+    _, rest = K10.symmetric_force_numpy(
+        pack, np.zeros((2, 3 * drv.number)), f0=f0[0])
+    assert not rest.any()
+
+
+@pytest.mark.parametrize("case", ["slab", "slab_tab", "truncated",
+                                  "alloy_truncated", "one_sided",
+                                  "reverse_d0", "reverse_pair"])
+def test_symmetry_check_chooses_the_route(case):
+    """``symmetric_table`` accepts the whole gold slab's table (1,728
+    atoms, rows of 86), analytic and tabulated; it refuses a table
+    truncated below its occupancy (one and two elements), a table with
+    one entry dropped from one side, one whose reverse d0 differs in the
+    last bit, and a tabulated one whose reverse slot names another pair
+    row: those keep the general route."""
+    from sclmd_tpu_torch.tools import slab as SL
+    if case.startswith("slab"):
+        drv = SL.slab_driver("eam" if case == "slab" else "eam_tab",
+                             torch.float64, "cpu")
+        pack = K10.pack_operands(drv.energy_fn.terms, drv.xyz, drv.conv)
+        assert pack["na"] == 1728 and pack["width"] == 86
+        assert pack["sym"] and K10.symmetric_table(pack)
+        return
+    if case.endswith("truncated"):
+        drv, pack, _ = _formula_case(
+            "eam_truncated" if case == "truncated" else "gold_alloy")
+        if case == "alloy_truncated":
+            t = dict(drv.energy_fn.terms)
+            nbr, mask = build_neighbors(drv.xyz.reshape(-1, 3), t["rcut"],
+                                        40, cell=t["cell"], skin=0.3)
+            t.update(nbr=nbr, mask=mask,
+                     pair_index=t["table"]["pair_index"][
+                         t["types"][:, None], t["types"][nbr]])
+            assert _asymmetric(nbr, mask)
+            pack = K10.pack_operands(t, drv.xyz, drv.conv)
+        assert not pack["sym"]
+        return
+    drv, pack, _ = _formula_case("gold_alloy")
+    assert pack["sym"]
+    k = int(np.nonzero(np.linalg.norm(pack["d0"], axis=1) > 3.0)[0][0])
+    if case == "one_sided":
+        t = dict(drv.energy_fn.terms)
+        mask = np.array(t["mask"])
+        i = pack["slot_i"][k]
+        mask[i, np.nonzero(mask[i])[0][-1]] = False
+        t.update(mask=mask)
+        assert not K10.pack_operands(t, drv.xyz, drv.conv)["sym"]
+        return
+    key = "d0" if case == "reverse_d0" else "slot_pair"
+    pack[key] = pack[key].copy()
+    if case == "reverse_d0":
+        pack["d0"][k, 0] = np.nextafter(pack["d0"][k, 0], np.inf)
+    else:
+        pack["slot_pair"][k] = 2 - pack["slot_pair"][k] \
+            if pack["slot_pair"][k] != 1 else 0
+    assert not K10.symmetric_table(pack)
 
 
 def test_slot_table_lists_every_slot_twice():

@@ -245,6 +245,7 @@ REGISTRY = [
     ("launches.K8", "ch_force", "launches_tersoff"),
     ("launches.K9", "sw_force", "launches"),
     ("launches.K10", "eam_force", "launches"),
+    ("launches.K10_sym", "eam_force", "launches_sym"),
 ]
 
 
