@@ -38,8 +38,9 @@ read-back, a batch of files, a checkpoint), never a step:
                          the last checkpoint
     setup/library        loading (or building) the kernel library
     setup/bath           a bath's PSD factorisation
-    setup/driver         CHDriver's and SWDriver's tables and kernel
-                         pack
+    setup/driver         a driver's tables and kernel pack (CHDriver,
+                         SWDriver, EAMDriver), or deepmddriver's
+                         forces at q = 0
     setup/thermal_start  the eigh of the dynamical matrix (set_dyn)
 
 Counters. ``counters()`` reads them all: the program's own, added with
@@ -56,8 +57,10 @@ the kernels' launch counters, each a plain integer global
 of its module registered once at import (``register``):
 ``launches.K7`` is ``kernels.bath_force.launches`` (``launches.K9`` and
 ``launches.K10`` count evaluations, three kernels each;
-``launches.K10_sym`` those of K10 on its symmetric route). They count
-kernel executions: a graph replay adds the launches it holds.
+``launches.K10_sym`` those of K10 on its symmetric route;
+``launches.DP`` is ``models.nnp.launches``, the DeepPot-SE network's
+evaluations by ``deepmddriver``, each a forward pass and its backward).
+They count kernel executions: a graph replay adds the launches it holds.
 
 Reports. ``md.RunEnsemble`` and ``md.Run`` each run inside ``call``,
 which opens one ``Report``: the entry, its wall seconds, ``{span:

@@ -1091,6 +1091,60 @@ def test_sw_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
                     "slot_gather_kernel": k9, "bath_force_kernel": k7}
 
 
+@pytest.mark.parametrize("cells,ntraj", [((4, 3, 3), 16), ((12, 6, 6), 4)])
+def test_run_segment_graph_matches_eager_dp_slab(cuda, monkeypatch, tmp_path,
+                                                 cells, ntraj):
+    """The silicon slab under the DeepPot-SE network at DeePMD-kit's
+    widths overlaid on Stillinger-Weber (``deepmddriver``, capturable as
+    its baseline ``SWDriver`` is: the network's autograd twice a step
+    with K9) over two whole groups and three steps: cut to 4 x 3 x 3
+    cells at 16 trajectories and whole at 4. The autograd's scatter of
+    the table's gradient sorts its indices (no float atomics), so the
+    replay gives the eager steps' bits."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    system, st = _slab_system(cuda, tmp_path, cells, kind="si_dp",
+                              ntraj=ntraj)
+    _graph_against_eager(monkeypatch, system, st, 2 * SG.GRAPH_STEPS + 3,
+                         250, {"launches.DP": 2, "launches.K9": 2,
+                               "launches.K7": 3})
+
+
+def test_dp_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
+    """Under replay the profiler sees the network's kernels of the
+    benchmark's work file (``benchmarks/work/DP.py``: ``KERNELS``, one
+    ``COUNTERS`` entry each of an evaluation's) as many times as the
+    program counts evaluations (``launches.DP``) times the kernels of
+    one: what ``DP_roofline`` compares."""
+    import json
+
+    from benchmarks import spec
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.utils import profiling as P
+    DP = spec.work("DP")
+    assert DP.KERNELS and len(DP.COUNTERS) >= len(DP.KERNELS)
+    system, st = _slab_system(cuda, tmp_path, (4, 3, 3), kind="si_dp",
+                              ntraj=4)
+    nsteps = 3 * SG.GRAPH_STEPS + 1
+    TMD.run_segment(system, st, nsteps, t0=0)          # capture once
+    torch.cuda.synchronize()
+    before = P.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        TMD.run_segment(system, st, nsteps, t0=0)
+        torch.cuda.synchronize()
+    after = P.counters()
+    assert after["steps_graphed"] - before["steps_graphed"] == \
+        3 * SG.GRAPH_STEPS
+    dp = after["launches.DP"] - before["launches.DP"]
+    assert dp == 2 * nsteps
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    seen = sum(any(k in n for k in DP.KERNELS) for n in names)
+    assert seen == len(DP.COUNTERS) * dp
+
+
 @pytest.mark.parametrize("route", ["sym", "general"])
 @pytest.mark.parametrize("kind", ["eam", "eam_tab"])
 @pytest.mark.parametrize("cells", [(4, 4, 4), (12, 6, 6)])
