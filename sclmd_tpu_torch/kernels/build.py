@@ -140,6 +140,11 @@ def load() -> ctypes.CDLL:
     lib.ch_force_max_groups.restype = ci
     lib.ch_force_trace_len.argtypes = []
     lib.ch_force_trace_len.restype = ci
+    for name in ("dp_descriptor_f32", "dp_descriptor_grad_f32"):
+        getattr(lib, name).argtypes = [vp, vp]
+        getattr(lib, name).restype = ci
+    lib.dp_descriptor_limits.argtypes = [ctypes.POINTER(ci)]
+    lib.dp_descriptor_limits.restype = None
     for name in ("sw_force_f32", "eam_force_f32"):
         getattr(lib, name).argtypes = [vp, vp]
         getattr(lib, name).restype = ci

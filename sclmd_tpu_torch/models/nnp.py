@@ -15,6 +15,14 @@ each entry j of its row of the table (nn entries, padding masked):
     E_i  = N_fit[type i](D_i)     ndesc -> fit_sizes -> 1, tanh between
     E    = sum_i E_i,   F = -dE/dx
 
+The embedding's last layer is linear, so it moves past the sum over
+entries exactly: G_i^T = sum_t ((R_t^T h2) W3_t + (R_t^T 1) b3_t^T) / nn,
+with h2 the embedding's last hidden activation and R_t the rows of the
+entries of type t; no nemb-wide tensor exists per entry. That form, and D,
+is ``kernels.dp_descriptor`` (K13: a hand kernel on the card in float32, its
+plain twin elsewhere). Under torch.func (``dynmat``'s Hessian) the energy
+takes the per-entry form above.
+
 Departures from DeePMD-kit's ``se_e2_a``, the JAX package's: no ResNet
 skips, no davg/dstd normalisation of the environment, no per-type energy
 bias, and the descriptor divided by the table's width. The energy takes
@@ -37,6 +45,7 @@ import torch
 
 from sclmd_tpu_torch import resolve_device
 from sclmd_tpu_torch import units as U
+from sclmd_tpu_torch.kernels import dp_descriptor as K13
 from sclmd_tpu_torch.models.driver import Consts, DriverShell, TorchDriver
 from sclmd_tpu_torch.utils import profiling
 
@@ -197,14 +206,16 @@ class _Displacements(torch.autograd.Function):
         return xt[..., nbr, :] - xt[..., :, None, :]
 
 
-def _mlp(net, x):
+def _mlp(net, x, hidden: bool = False):
+    """The net's layers with a tanh after each but the last; after the last
+    too where ``hidden`` (the layers are a net's hidden ones)."""
     for i, (w, b) in enumerate(net):
         if w.shape[0] == 1:
             # a one-wide input: the product is an outer product
             x = torch.addcmul(b, x, w[0])
         else:
             x = torch.nn.functional.linear(x, w.t(), b)
-        if i < len(net) - 1:
+        if hidden or i < len(net) - 1:
             x = torch.tanh(x)
     return x
 
@@ -247,7 +258,7 @@ class DeepPotSE:
         if rev is not None:
             arrays["rev"] = rev
         if self.ntypes > 1:
-            arrays["ntype"] = self.types[self.nbr]
+            arrays["ntype"] = self.types[self.nbr].astype(np.int32)
             arrays["ctype"] = self.types
         if self.cell is not None:
             arrays["cell"] = self.cell
@@ -303,25 +314,42 @@ class DeepPotSE:
                       dim=-1)                               # (..., na, nn, 4)
         # the embedding of each entry by its neighbour's type; a padding
         # entry has R = 0, so its embedding adds exact zeros to G
-        emb = None
-        for tp in range(self.ntypes):
-            e = _mlp(p["embed"][tp], s[..., None])
-            emb = e if emb is None else \
-                torch.where((k["ntype"] == tp)[..., None], e, emb)
-        # G^T = R^T e / nn, (..., na, 4, nemb): the transposed operand is
-        # the 4-wide R, so the gradient to the embedding comes out in its
-        # own layout (G = e^T R transposes the nemb-wide one, and its
-        # gradient is copied back)
-        nn = self.nbr.shape[1]
-        GT = torch.matmul(R.transpose(-1, -2), emb) / nn
-        D = torch.matmul(GT.transpose(-1, -2), GT[..., :self.naxis])
-        D = D.reshape(D.shape[:-2] + (-1,))                 # (..., na, ndesc)
+        embed = p["embed"]
+        if torch._C._are_functorch_transforms_active():
+            # under torch.func (the Hessian of ``dynmat``): the per-entry
+            # form, the whole embedding on each entry
+            D = self._descriptor_per_entry(embed, s, R, k)
+        else:
+            # the embedding's hidden layers on each entry; its last layer,
+            # which is linear, after the sum over entries (K13 on the card)
+            h2 = None
+            for tp in range(self.ntypes):
+                e = _mlp(embed[tp][:-1], s[..., None], hidden=True)
+                h2 = e if h2 is None else \
+                    torch.where((k["ntype"] == tp)[..., None], e, h2)
+            D = K13.descriptor(h2, R, [net[-1][0] for net in embed],
+                               [net[-1][1] for net in embed], k.get("ntype"),
+                               self.naxis)                 # (..., na, ndesc)
         e_at = None
         for tp in range(self.ntypes):
             e = _mlp(p["fit"][tp], D)[..., 0]
             e_at = e if e_at is None else \
                 torch.where(k["ctype"] == tp, e, e_at)
         return e_at.sum(-1)
+
+    def _descriptor_per_entry(self, embed, s, R, k) -> torch.Tensor:
+        emb = None
+        for tp in range(self.ntypes):
+            e = _mlp(embed[tp], s[..., None])
+            emb = e if emb is None else \
+                torch.where((k["ntype"] == tp)[..., None], e, emb)
+        # G^T = R^T e / nn, (..., na, 4, nemb): the transposed operand is
+        # the 4-wide R, so the gradient to the embedding comes out in its
+        # own layout (G = e^T R transposes the nemb-wide one, and its
+        # gradient is copied back)
+        GT = torch.matmul(R.transpose(-1, -2), emb) / self.nbr.shape[1]
+        D = torch.matmul(GT.transpose(-1, -2), GT[..., :self.naxis])
+        return D.reshape(D.shape[:-2] + (-1,))
 
     def energy_fn(self, params: Optional[dict] = None):
         p = self.params if params is None else params

@@ -1145,6 +1145,95 @@ def test_dp_slab_replay_runs_the_kernels_counted(cuda, tmp_path):
     assert seen == len(DP.COUNTERS) * dp
 
 
+def _dp_operands(cuda, lead, na, nn, h, e, ntypes, seed):
+    """K13's operands in float32 on the card: activations of a tanh, rows
+    R with two padding entries an atom, weights at 1/sqrt(fan_in)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=cuda, generator=gen)
+
+    h2 = torch.tanh(rnd(*lead, na, nn, h))
+    R = 0.3 * rnd(*lead, na, nn, 4)
+    R[..., -2:, :] = 0.0
+    w3 = [rnd(h, e) / h ** 0.5 for _ in range(ntypes)]
+    b3 = [0.1 * rnd(e) for _ in range(ntypes)]
+    ntype = None if ntypes == 1 else torch.randint(
+        0, ntypes, (na, nn), device=cuda, generator=gen, dtype=torch.int32)
+    dD = rnd(*lead, na, e * 16) if e >= 16 else None
+    return h2, R, w3, b3, ntype, dD
+
+
+def _dp_run(h2, R, w3, b3, ntype, naxis, dD, twin=False):
+    """D and its gradients to h2 and R: K13, or the plain twin."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    a, b = h2.clone().requires_grad_(), R.clone().requires_grad_()
+    fn = K13.descriptor_plain if twin else K13.descriptor
+    D = fn(a, b, w3, b3, ntype, naxis)
+    D.backward(dD)
+    return [D.detach(), a.grad, b.grad]
+
+
+@pytest.mark.parametrize("ntypes,lead,na", [(1, (4,), 3456), (2, (3,), 300),
+                                            (4, (2,), 200)])
+def test_dp_descriptor_against_twin(cuda, ntypes, lead, na):
+    """K13 at the silicon slab's shapes (4 trajectories of 3,456 atoms, 48
+    entries; DeePMD-kit's widths h 50, E 100, 16 axis columns) and at two
+    and four neighbour types, forward and both gradients, against the
+    plain twin in float64 on the same float32 operands. Tolerance 5e-6
+    of the largest value: float32 sums of 48 entries, then of 50 and of
+    116 columns, in another order than the twin's (each rounding 6e-8 of
+    its running sum); the kernel's largest error here is reported (on an
+    H100 at most 6.7e-7, at four types' D)."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    h2, R, w3, b3, ntype, dD = _dp_operands(cuda, lead, na, 48, 50, 100,
+                                            ntypes, 7)
+    before = K13.launches
+    got = _dp_run(h2, R, w3, b3, ntype, 16, dD)
+    torch.cuda.synchronize()
+    assert K13.launches == before + 1
+    f64 = [t.double() for t in (h2, R)]
+    want = _dp_run(*f64, [w.double() for w in w3],
+                   [b.double() for b in b3], ntype, 16, dD.double(),
+                   twin=True)
+    for name, g, w in zip(("D", "dh2", "dR"), got, want):
+        err = float((g.double() - w).abs().max() / w.abs().max())
+        print(f"K13 {name} ntypes {ntypes}: largest error {err:.3e} of "
+              "the largest value")
+        assert err <= 5e-6, name
+    # a padding entry's activation takes an exact zero
+    assert torch.equal(got[1][..., -2:, :],
+                       torch.zeros_like(got[1][..., -2:, :]))
+
+
+def test_dp_descriptor_launches_give_the_same_bits(cuda):
+    """Two launches of K13's forward and gradient on the same operands give
+    the same bits (fixed orders, no atomics)."""
+    h2, R, w3, b3, _, dD = _dp_operands(cuda, (4,), 3456, 48, 50, 100, 1, 3)
+    one = _dp_run(h2, R, w3, b3, None, 16, dD)
+    two = _dp_run(h2, R, w3, b3, None, 16, dD)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+def test_dp_slab_counts_the_descriptor_with_each_evaluation(cuda, tmp_path):
+    """On the silicon slab under the network every evaluation the program
+    counts (``launches.DP``) took its descriptor through K13
+    (``launches.DP_desc``), eagerly and under replay."""
+    from sclmd_tpu_torch.kernels import step_graph as SG
+    from sclmd_tpu_torch.utils import profiling as P
+    system, st = _slab_system(cuda, tmp_path, (4, 3, 3), kind="si_dp",
+                              ntraj=4)
+    before = P.counters()
+    TMD.run_segment(system, st, 2 * SG.GRAPH_STEPS + 1, t0=0)
+    torch.cuda.synchronize()
+    after = P.counters()
+    dp = after["launches.DP"] - before["launches.DP"]
+    assert dp == 2 * (2 * SG.GRAPH_STEPS + 1)
+    assert after["launches.DP_desc"] - before["launches.DP_desc"] == dp
+    assert after["steps_graphed"] - before["steps_graphed"] > 0
+
+
 @pytest.mark.parametrize("route", ["sym", "general"])
 @pytest.mark.parametrize("kind", ["eam", "eam_tab"])
 @pytest.mark.parametrize("cells", [(4, 4, 4), (12, 6, 6)])

@@ -385,3 +385,146 @@ def test_a_truncated_table_matches_jax():
     assert "rev" not in tmod._consts._np
     fj = np.asarray(jmod.forces(jmod.params, jnp.asarray(pos)))
     _close(tmod.forces(tmod.params, torch.as_tensor(pos)).numpy(), fj)
+
+
+def _per_entry_forces(tmod, x):
+    """Forces by torch.func, under which the energy takes the per-entry
+    form (the whole embedding on each entry, as before K13)."""
+    return -torch.func.grad(lambda y: tmod.energy(tmod.params, y).sum())(x)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("ntypes", [1, 2])
+def test_the_reassociated_twin_matches_the_per_entry_form_and_jax(
+        ntypes, periodic, monkeypatch):
+    """Autograd's energy and forces go through ``kernels.dp_descriptor``'s
+    twin (the last embedding layer after the sum over entries); torch.func's
+    through the per-entry form: both against the JAX package, to the
+    rounding of sums in another order."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    calls = []
+    plain = K13.descriptor_plain
+    monkeypatch.setattr(K13, "descriptor_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    jmod, tmod, pos = _models(ntypes, periodic)
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(pos + 0.03 * rng.standard_normal((2,) + pos.shape))
+    ej = np.array([float(jmod.energy(jmod.params, jnp.asarray(xi)))
+                   for xi in x.numpy()])
+    fj = np.stack([np.asarray(jmod.forces(jmod.params, jnp.asarray(xi)))
+                   for xi in x.numpy()])
+    et = tmod.energy(tmod.params, x)
+    ft = tmod.forces(tmod.params, x)
+    assert len(calls) == 2
+    fe = _per_entry_forces(tmod, x)
+    assert len(calls) == 2
+    np.testing.assert_allclose(et.numpy(), ej, rtol=RTOL)
+    _close(ft.numpy(), fj)
+    _close(fe.numpy(), fj)
+    _close(ft.numpy(), fe.numpy())
+    assert not torch.equal(ft, fe)     # two forms, not one path twice
+
+
+def _descriptor_operands(ntypes, lead=(2,), na=5, nn=9, h=6, e=10, seed=0):
+    rng = np.random.default_rng(seed)
+    h2 = torch.as_tensor(np.tanh(rng.standard_normal(lead + (na, nn, h))))
+    R = torch.as_tensor(rng.standard_normal(lead + (na, nn, 4)))
+    R[..., -2:, :] = 0.0                       # two padding entries a row
+    w3 = [torch.as_tensor(rng.standard_normal((h, e))) for _ in range(ntypes)]
+    b3 = [torch.as_tensor(rng.standard_normal(e)) for _ in range(ntypes)]
+    ntype = None if ntypes == 1 else \
+        torch.as_tensor(rng.integers(0, ntypes, (na, nn)))
+    return h2, R, w3, b3, ntype
+
+
+@pytest.mark.parametrize("ntypes", [1, 2, 3])
+def test_the_descriptor_twin_is_the_per_entry_form(ntypes):
+    """``descriptor_plain`` against G^T = R^T e / nn with e = h2 W3 + b3 of
+    each entry's own type, D and both gradients, in float64."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    h2, R, w3, b3, ntype = _descriptor_operands(ntypes)
+    naxis = 4
+
+    def per_entry(h2, R):
+        emb = None
+        for t in range(ntypes):
+            e = h2 @ w3[t] + b3[t]
+            emb = e if emb is None else \
+                torch.where((ntype == t)[..., None], e, emb)
+        GT = R.transpose(-1, -2) @ emb / R.shape[-2]
+        D = GT.transpose(-1, -2) @ GT[..., :naxis]
+        return D.reshape(D.shape[:-2] + (-1,))
+
+    rng = np.random.default_rng(1)
+    dD = torch.as_tensor(rng.standard_normal(h2.shape[:-2] + (40,)))
+    got, want = [], []
+    for fn, out in ((lambda a, b: K13.descriptor(a, b, w3, b3, ntype, naxis),
+                     got), (per_entry, want)):
+        a, b = h2.clone().requires_grad_(), R.clone().requires_grad_()
+        D = fn(a, b)
+        D.backward(dD)
+        out += [D.detach(), a.grad, b.grad]
+    assert got[0].shape == (2, 5, 40)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w.numpy())
+
+
+def test_padding_entries_add_exact_zeros():
+    """A padding entry (R = 0) leaves D's bits whatever its activation, and
+    its activation's gradient is exactly zero."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    h2, R, w3, b3, ntype = _descriptor_operands(2)
+    other = h2.clone()
+    other[..., -2:, :] = 7.5
+    D = K13.descriptor(h2, R, w3, b3, ntype, 4)
+    assert torch.equal(K13.descriptor(other, R, w3, b3, ntype, 4), D)
+    a = h2.clone().requires_grad_()
+    K13.descriptor(a, R, w3, b3, ntype, 4).sum().backward()
+    pad = a.grad[..., -2:, :]
+    assert torch.equal(pad, torch.zeros_like(pad))
+    assert a.grad[..., :-2, :].abs().min() > 0
+
+
+def test_dynmat_takes_the_per_entry_form(monkeypatch):
+    """The float64 Hessian (``dynmat``, torch.func) never reaches K13 or its
+    twin: the per-entry form it took before; it equals autograd's Hessian
+    of the twin's energy to the rounding of sums in another order."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    net, _ = _sw_and_dp(cells=(2, 2, 2), baseline=False)
+
+    def refuse(*a):
+        raise AssertionError("dynmat reached K13")
+
+    with monkeypatch.context() as m:
+        m.setattr(K13, "descriptor", refuse)
+        h = net.dynmat()
+    model = net.model
+    xyz = torch.as_tensor(net.xyz)
+    conv = torch.as_tensor(net.conv)
+    na = net.number
+    want = torch.autograd.functional.hessian(
+        lambda q: model.energy(model.params, (xyz + conv * q).reshape(na, 3)),
+        torch.zeros(3 * na, dtype=torch.float64))
+    want = 0.5 * (want + want.T)
+    _close(h.numpy(), want.numpy())
+
+
+def test_the_kernel_route_needs_cuda_float32():
+    """``descriptor`` launches K13 only on CUDA float32 operands within its
+    widths: on the CPU the twin runs and ``launches.DP_desc`` stays."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    h2, R, w3, b3, ntype = _descriptor_operands(2)
+    before = profiling.counters()["launches.DP_desc"]
+    for dt in (torch.float32, torch.float64):
+        c = [t.to(dt) for t in (h2, R)]
+        w = [t.to(dt) for t in w3]
+        assert not K13.takes_kernel(*c, w, b3, 4)
+        K13.descriptor(*c, w, [t.to(dt) for t in b3], ntype, 4)
+    assert profiling.counters()["launches.DP_desc"] == before == K13.launches
+    assert (K13.MAX_TYPES, K13.MAX_IN, K13.MAX_EMB, K13.MAX_AXIS) == \
+        (4, 64, 128, 32)
+    # DeePMD-kit's se_e2_a widths fit the kernel
+    assert PUBLISHED["embed_sizes"][-2] <= K13.MAX_IN
+    assert PUBLISHED["embed_sizes"][-1] <= K13.MAX_EMB
+    assert PUBLISHED["naxis"] <= K13.MAX_AXIS
+    assert PUBLISHED["naxis"] % 4 == 0

@@ -246,6 +246,7 @@ REGISTRY = [
     ("launches.K9", "sw_force", "launches"),
     ("launches.K10", "eam_force", "launches"),
     ("launches.K10_sym", "eam_force", "launches_sym"),
+    ("launches.DP_desc", "dp_descriptor", "launches"),
 ]
 
 
