@@ -621,11 +621,3 @@ extern "C" int dp_descriptor_f32(const DpArgs* args, void* stream) {
 extern "C" int dp_descriptor_grad_f32(const DpArgs* args, void* stream) {
   return dp_dispatch(args, true, stream);
 }
-
-// DP_MAX_TYPES, DP_MAX_IN, DP_MAX_EMB, DP_MAX_AXIS, for the wrapper's check
-extern "C" void dp_descriptor_limits(int* out) {
-  out[0] = DP_MAX_TYPES;
-  out[1] = DP_MAX_IN;
-  out[2] = DP_MAX_EMB;
-  out[3] = DP_MAX_AXIS;
-}

@@ -143,8 +143,6 @@ def load() -> ctypes.CDLL:
     for name in ("dp_descriptor_f32", "dp_descriptor_grad_f32"):
         getattr(lib, name).argtypes = [vp, vp]
         getattr(lib, name).restype = ci
-    lib.dp_descriptor_limits.argtypes = [ctypes.POINTER(ci)]
-    lib.dp_descriptor_limits.restype = None
     for name in ("sw_force_f32", "eam_force_f32"):
         getattr(lib, name).argtypes = [vp, vp]
         getattr(lib, name).restype = ci

@@ -14,11 +14,13 @@ is the per-entry form G^T = R^T (h2 W3 + b3) / nn with the last layer
 moved past the sum over entries, exact for a linear layer: no E-wide
 tensor exists per entry.
 
-``descriptor`` launches the hand kernels (csrc/dp_descriptor.cu, a
-forward and its gradient, in a ``torch.autograd.Function``) on CUDA
-float32 tensors within the kernels' widths (``MAX_*``) and weights that
-take no gradient, and otherwise runs the plain twin ``descriptor_plain``,
-the same reassociated arithmetic in torch (CPU tensors, float64).
+``descriptor`` runs the plain twin ``descriptor_plain``, the same
+reassociated arithmetic in torch, on CPU tensors, and on CUDA tensors the
+hand kernels (csrc/dp_descriptor.cu, a forward and its gradient, in a
+``torch.autograd.Function``), which take float32 alone and weights that
+take no gradient, and refuse widths beyond theirs (``DP_MAX_*`` there).
+A float64 run on the card takes the twin at the model
+(``models.nnp.DeepPotSE.energy``).
 """
 
 from __future__ import annotations
@@ -32,12 +34,6 @@ from sclmd_tpu_torch.kernels import build
 from sclmd_tpu_torch.utils import profiling
 
 launches = 0   # forward launches: the descriptors that went through K13
-
-# DP_MAX_TYPES, DP_MAX_IN, DP_MAX_EMB, DP_MAX_AXIS in csrc/dp_descriptor.cu:
-# neighbour types, the hidden activation's width h, the embedding's width
-# E and the descriptor's axis columns (a multiple of 4: D's rows go out
-# four values a store)
-MAX_TYPES, MAX_IN, MAX_EMB, MAX_AXIS = 4, 64, 128, 32
 
 
 def reset_count():
@@ -67,38 +63,12 @@ def descriptor_plain(h2, R, w3, b3, ntype, naxis: int) -> torch.Tensor:
     return D.reshape(D.shape[:-2] + (-1,))
 
 
-def takes_kernel(h2, R, w3, b3, naxis: int) -> bool:
-    """Whether ``descriptor`` launches K13: CUDA float32 operands within
-    the kernels' widths, and weights that take no gradient."""
-    return (h2.is_cuda and h2.dtype == torch.float32
-            and R.dtype == torch.float32 and len(w3) <= MAX_TYPES
-            and h2.shape[-1] <= MAX_IN and w3[0].shape[-1] <= MAX_EMB
-            and naxis <= MAX_AXIS and naxis % 4 == 0
-            and not any(t.requires_grad for t in (*w3, *b3)))
-
-
 class _Args(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in
                 ("h2", "R", "ntype", "w3", "b3", "D", "GT", "dD", "dh2",
                  "dR")] + \
                [(n, ctypes.c_int) for n in
                 ("rows", "na", "nn", "h", "e", "naxis", "nt")]
-
-
-_checked = False
-
-
-def _lib():
-    global _checked
-    lib = build.load()
-    if not _checked:
-        lims = (ctypes.c_int * 4)()
-        lib.dp_descriptor_limits(lims)
-        if tuple(lims) != (MAX_TYPES, MAX_IN, MAX_EMB, MAX_AXIS):
-            raise RuntimeError("dp_descriptor: MAX_* differ from the "
-                               "kernel's")
-        _checked = True
-    return lib
 
 
 def _args(h2, R, w3, b3, ntype, naxis) -> _Args:
@@ -130,7 +100,7 @@ class _DescriptorCuda(torch.autograd.Function):
                         device=h2.device)
         GT = torch.empty(lead + (a.e, 4), dtype=h2.dtype, device=h2.device)
         a.D, a.GT = D.data_ptr(), GT.data_ptr()
-        rc = _lib().dp_descriptor_f32(ctypes.byref(a),
+        rc = build.load().dp_descriptor_f32(ctypes.byref(a),
                                       build.current_stream(h2.device))
         build.check(rc, "dp_descriptor")
         launches += 1
@@ -147,18 +117,26 @@ class _DescriptorCuda(torch.autograd.Function):
         dh2, dR = torch.empty_like(h2), torch.empty_like(R)
         a.GT, a.dD = GT.data_ptr(), dD.data_ptr()
         a.dh2, a.dR = dh2.data_ptr(), dR.data_ptr()
-        rc = _lib().dp_descriptor_grad_f32(ctypes.byref(a),
+        rc = build.load().dp_descriptor_grad_f32(ctypes.byref(a),
                                            build.current_stream(h2.device))
         build.check(rc, "dp_descriptor_grad")
         return dh2, dR, None, None, None, None
 
 
 def descriptor(h2, R, w3, b3, ntype, naxis: int) -> torch.Tensor:
-    """D (..., na, E naxis): K13 where ``takes_kernel``, else the twin.
-    ``w3``, ``b3``: the last layer's weights (h, E) and biases (E,), a
-    list by neighbour type; ``ntype``: (na, nn) types (None with one)."""
-    if not takes_kernel(h2, R, w3, b3, naxis):
+    """D (..., na, E naxis): the twin for CPU tensors, K13 for CUDA
+    tensors. ``w3``, ``b3``: the last layer's weights (h, E) and biases
+    (E,), a list by neighbour type; ``ntype``: (na, nn) types (None with
+    one)."""
+    if h2.device.type == "cpu" and R.device.type == "cpu":
         return descriptor_plain(h2, R, w3, b3, ntype, naxis)
+    if h2.dtype != torch.float32 or R.dtype != torch.float32:
+        raise TypeError("dp_descriptor: the kernel takes float32 (got "
+                        f"{h2.dtype}, {R.dtype}); a float64 run takes "
+                        "descriptor_plain")
+    if any(t.requires_grad for t in (*w3, *b3)):
+        raise ValueError("dp_descriptor: the kernel gives no gradient to "
+                         "the weights")
     W = w3[0] if len(w3) == 1 else torch.stack(w3)
     B = b3[0] if len(b3) == 1 else torch.stack(b3)
     nt = None if len(w3) == 1 else ntype.to(torch.int32).contiguous()

@@ -20,8 +20,7 @@ entries exactly: G_i^T = sum_t ((R_t^T h2) W3_t + (R_t^T 1) b3_t^T) / nn,
 with h2 the embedding's last hidden activation and R_t the rows of the
 entries of type t; no nemb-wide tensor exists per entry. That form, and D,
 is ``kernels.dp_descriptor`` (K13: a hand kernel on the card in float32, its
-plain twin elsewhere). Under torch.func (``dynmat``'s Hessian) the energy
-takes the per-entry form above.
+plain twin in float64 and on the CPU, ``dynmat``'s Hessian included).
 
 Departures from DeePMD-kit's ``se_e2_a``, the JAX package's: no ResNet
 skips, no davg/dstd normalisation of the environment, no per-type energy
@@ -312,44 +311,27 @@ class DeepPotSE:
         s = torch.where(mask, sw / r, torch.zeros_like(r))
         R = torch.cat([s[..., None], s[..., None] * (d / r[..., None])],
                       dim=-1)                               # (..., na, nn, 4)
-        # the embedding of each entry by its neighbour's type; a padding
-        # entry has R = 0, so its embedding adds exact zeros to G
+        # the embedding's hidden layers on each entry by its neighbour's
+        # type; its last layer, which is linear, after the sum over entries
+        # (K13 on the card in float32; float64 takes the twin on either
+        # device). A padding entry has R = 0, so it adds exact zeros to G
         embed = p["embed"]
-        if torch._C._are_functorch_transforms_active():
-            # under torch.func (the Hessian of ``dynmat``): the per-entry
-            # form, the whole embedding on each entry
-            D = self._descriptor_per_entry(embed, s, R, k)
-        else:
-            # the embedding's hidden layers on each entry; its last layer,
-            # which is linear, after the sum over entries (K13 on the card)
-            h2 = None
-            for tp in range(self.ntypes):
-                e = _mlp(embed[tp][:-1], s[..., None], hidden=True)
-                h2 = e if h2 is None else \
-                    torch.where((k["ntype"] == tp)[..., None], e, h2)
-            D = K13.descriptor(h2, R, [net[-1][0] for net in embed],
-                               [net[-1][1] for net in embed], k.get("ntype"),
-                               self.naxis)                 # (..., na, ndesc)
+        h2 = None
+        for tp in range(self.ntypes):
+            e = _mlp(embed[tp][:-1], s[..., None], hidden=True)
+            h2 = e if h2 is None else \
+                torch.where((k["ntype"] == tp)[..., None], e, h2)
+        desc = K13.descriptor if x.dtype == torch.float32 else \
+            K13.descriptor_plain
+        D = desc(h2, R, [net[-1][0] for net in embed],
+                 [net[-1][1] for net in embed], k.get("ntype"),
+                 self.naxis)                               # (..., na, ndesc)
         e_at = None
         for tp in range(self.ntypes):
             e = _mlp(p["fit"][tp], D)[..., 0]
             e_at = e if e_at is None else \
                 torch.where(k["ctype"] == tp, e, e_at)
         return e_at.sum(-1)
-
-    def _descriptor_per_entry(self, embed, s, R, k) -> torch.Tensor:
-        emb = None
-        for tp in range(self.ntypes):
-            e = _mlp(embed[tp], s[..., None])
-            emb = e if emb is None else \
-                torch.where((k["ntype"] == tp)[..., None], e, emb)
-        # G^T = R^T e / nn, (..., na, 4, nemb): the transposed operand is
-        # the 4-wide R, so the gradient to the embedding comes out in its
-        # own layout (G = e^T R transposes the nemb-wide one, and its
-        # gradient is copied back)
-        GT = torch.matmul(R.transpose(-1, -2), emb) / self.nbr.shape[1]
-        D = torch.matmul(GT.transpose(-1, -2), GT[..., :self.naxis])
-        return D.reshape(D.shape[:-2] + (-1,))
 
     def energy_fn(self, params: Optional[dict] = None):
         p = self.params if params is None else params

@@ -1175,11 +1175,11 @@ def _dp_run(h2, R, w3, b3, ntype, naxis, dD, twin=False):
 
 
 @pytest.mark.parametrize("ntypes,lead,na", [(1, (4,), 3456), (2, (3,), 300),
-                                            (4, (2,), 200)])
+                                            (3, (2,), 200), (4, (2,), 200)])
 def test_dp_descriptor_against_twin(cuda, ntypes, lead, na):
     """K13 at the silicon slab's shapes (4 trajectories of 3,456 atoms, 48
     entries; DeePMD-kit's widths h 50, E 100, 16 axis columns) and at two
-    and four neighbour types, forward and both gradients, against the
+    to four neighbour types, forward and both gradients, against the
     plain twin in float64 on the same float32 operands. Tolerance 5e-6
     of the largest value: float32 sums of 48 entries, then of 50 and of
     116 columns, in another order than the twin's (each rounding 6e-8 of
@@ -1204,6 +1204,23 @@ def test_dp_descriptor_against_twin(cuda, ntypes, lead, na):
     # a padding entry's activation takes an exact zero
     assert torch.equal(got[1][..., -2:, :],
                        torch.zeros_like(got[1][..., -2:, :]))
+
+
+@pytest.mark.parametrize("h,e,naxis,ntypes", [(65, 100, 16, 1),
+                                             (50, 129, 16, 1),
+                                             (50, 100, 36, 1),
+                                             (50, 100, 18, 1),
+                                             (50, 100, 16, 5)])
+def test_dp_descriptor_refuses_what_it_cannot_run(cuda, h, e, naxis, ntypes):
+    """Widths beyond the kernel's (h 64, E 128, 32 axis columns in fours)
+    and more than four types raise on the card; no twin takes over."""
+    from sclmd_tpu_torch.kernels import dp_descriptor as K13
+    h2, R, w3, b3, ntype, _ = _dp_operands(cuda, (1,), 8, 6, h, e, ntypes,
+                                           1)
+    before = K13.launches
+    with pytest.raises(RuntimeError, match="dp_descriptor"):
+        K13.descriptor(h2, R, w3, b3, ntype, naxis)
+    assert K13.launches == before
 
 
 def test_dp_descriptor_launches_give_the_same_bits(cuda):

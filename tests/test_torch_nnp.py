@@ -387,20 +387,28 @@ def test_a_truncated_table_matches_jax():
     _close(tmod.forces(tmod.params, torch.as_tensor(pos)).numpy(), fj)
 
 
-def _per_entry_forces(tmod, x):
-    """Forces by torch.func, under which the energy takes the per-entry
-    form (the whole embedding on each entry, as before K13)."""
-    return -torch.func.grad(lambda y: tmod.energy(tmod.params, y).sum())(x)
+def _per_entry(h2, R, w3, b3, ntype, naxis):
+    """D by the per-entry form, the whole embedding on each entry (as before
+    K13): G^T = R^T e / nn with e = h2 W3 + b3 of each entry's own type."""
+    emb = None
+    for t, (w, b) in enumerate(zip(w3, b3)):
+        e = h2 @ w + b
+        emb = e if emb is None else \
+            torch.where((ntype == t)[..., None], e, emb)
+    GT = R.transpose(-1, -2) @ emb / R.shape[-2]
+    D = GT.transpose(-1, -2) @ GT[..., :naxis]
+    return D.reshape(D.shape[:-2] + (-1,))
 
 
 @pytest.mark.parametrize("periodic", [True, False])
 @pytest.mark.parametrize("ntypes", [1, 2])
 def test_the_reassociated_twin_matches_the_per_entry_form_and_jax(
         ntypes, periodic, monkeypatch):
-    """Autograd's energy and forces go through ``kernels.dp_descriptor``'s
-    twin (the last embedding layer after the sum over entries); torch.func's
-    through the per-entry form: both against the JAX package, to the
-    rounding of sums in another order."""
+    """The energy and forces, by autograd and by torch.func, go through
+    ``kernels.dp_descriptor``'s twin (the last embedding layer after the
+    sum over entries); with the per-entry form in its place they are the
+    same to the rounding of sums in another order, and both hold against
+    the JAX package."""
     from sclmd_tpu_torch.kernels import dp_descriptor as K13
     calls = []
     plain = K13.descriptor_plain
@@ -416,13 +424,17 @@ def test_the_reassociated_twin_matches_the_per_entry_form_and_jax(
     et = tmod.energy(tmod.params, x)
     ft = tmod.forces(tmod.params, x)
     assert len(calls) == 2
-    fe = _per_entry_forces(tmod, x)
-    assert len(calls) == 2
+    ff = -torch.func.grad(lambda y: tmod.energy(tmod.params, y).sum())(x)
+    assert len(calls) == 3
+    monkeypatch.setattr(K13, "descriptor_plain", _per_entry)
+    fe = tmod.forces(tmod.params, x)
+    assert len(calls) == 3
     np.testing.assert_allclose(et.numpy(), ej, rtol=RTOL)
-    _close(ft.numpy(), fj)
-    _close(fe.numpy(), fj)
+    np.testing.assert_allclose(tmod.energy(tmod.params, x).numpy(), ej,
+                               rtol=RTOL)
+    for f in (ft, ff, fe):
+        _close(f.numpy(), fj)
     _close(ft.numpy(), fe.numpy())
-    assert not torch.equal(ft, fe)     # two forms, not one path twice
 
 
 def _descriptor_operands(ntypes, lead=(2,), na=5, nn=9, h=6, e=10, seed=0):
@@ -446,14 +458,7 @@ def test_the_descriptor_twin_is_the_per_entry_form(ntypes):
     naxis = 4
 
     def per_entry(h2, R):
-        emb = None
-        for t in range(ntypes):
-            e = h2 @ w3[t] + b3[t]
-            emb = e if emb is None else \
-                torch.where((ntype == t)[..., None], e, emb)
-        GT = R.transpose(-1, -2) @ emb / R.shape[-2]
-        D = GT.transpose(-1, -2) @ GT[..., :naxis]
-        return D.reshape(D.shape[:-2] + (-1,))
+        return _per_entry(h2, R, w3, b3, ntype, naxis)
 
     rng = np.random.default_rng(1)
     dD = torch.as_tensor(rng.standard_normal(h2.shape[:-2] + (40,)))
@@ -486,45 +491,48 @@ def test_padding_entries_add_exact_zeros():
 
 
 def test_dynmat_takes_the_per_entry_form(monkeypatch):
-    """The float64 Hessian (``dynmat``, torch.func) never reaches K13 or its
-    twin: the per-entry form it took before; it equals autograd's Hessian
-    of the twin's energy to the rounding of sums in another order."""
+    """The float64 Hessian (``dynmat``, torch.func on the CPU) goes through
+    K13's twin and holds against the JAX package's Hessian of the same
+    energy, to the rounding of sums in another order."""
     from sclmd_tpu_torch.kernels import dp_descriptor as K13
-    net, _ = _sw_and_dp(cells=(2, 2, 2), baseline=False)
-
-    def refuse(*a):
-        raise AssertionError("dynmat reached K13")
-
-    with monkeypatch.context() as m:
-        m.setattr(K13, "descriptor", refuse)
-        h = net.dynmat()
-    model = net.model
-    xyz = torch.as_tensor(net.xyz)
-    conv = torch.as_tensor(net.conv)
-    na = net.number
-    want = torch.autograd.functional.hessian(
-        lambda q: model.energy(model.params, (xyz + conv * q).reshape(na, 3)),
-        torch.zeros(3 * na, dtype=torch.float64))
-    want = 0.5 * (want + want.T)
-    _close(h.numpy(), want.numpy())
+    calls = []
+    plain = K13.descriptor_plain
+    monkeypatch.setattr(K13, "descriptor_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    jmod, tmod, pos = _models(2, True)
+    axyz = [["Si", *p] for p in pos]
+    drv = TorchDriver(tmod.energy_fn(), axyz, dtype=torch.float64,
+                      device="cpu")
+    h = drv.dynmat()
+    assert calls
+    xyz, conv = jnp.asarray(drv.xyz), jnp.asarray(drv.conv)
+    want = np.asarray(jax.hessian(lambda q: jmod.energy(
+        jmod.params, (xyz + conv * q).reshape(-1, 3)))(
+            jnp.zeros(3 * len(pos), dtype=jnp.float64)))
+    _close(h.numpy(), 0.5 * (want + want.T))
 
 
 def test_the_kernel_route_needs_cuda_float32():
-    """``descriptor`` launches K13 only on CUDA float32 operands within its
-    widths: on the CPU the twin runs and ``launches.DP_desc`` stays."""
+    """``descriptor`` runs the twin on CPU tensors in either precision and
+    ``launches.DP_desc`` stays; other tensors go to K13, which refuses
+    float64 and weights that take a gradient before any launch (shown on
+    the meta device, which no kernel runs on)."""
     from sclmd_tpu_torch.kernels import dp_descriptor as K13
     h2, R, w3, b3, ntype = _descriptor_operands(2)
     before = profiling.counters()["launches.DP_desc"]
     for dt in (torch.float32, torch.float64):
         c = [t.to(dt) for t in (h2, R)]
-        w = [t.to(dt) for t in w3]
-        assert not K13.takes_kernel(*c, w, b3, 4)
-        K13.descriptor(*c, w, [t.to(dt) for t in b3], ntype, 4)
+        D = K13.descriptor(*c, [t.to(dt) for t in w3],
+                           [t.to(dt) for t in b3], ntype, 4)
+        assert D.dtype == dt and D.shape == (2, 5, 40)
     assert profiling.counters()["launches.DP_desc"] == before == K13.launches
-    assert (K13.MAX_TYPES, K13.MAX_IN, K13.MAX_EMB, K13.MAX_AXIS) == \
-        (4, 64, 128, 32)
-    # DeePMD-kit's se_e2_a widths fit the kernel
-    assert PUBLISHED["embed_sizes"][-2] <= K13.MAX_IN
-    assert PUBLISHED["embed_sizes"][-1] <= K13.MAX_EMB
-    assert PUBLISHED["naxis"] <= K13.MAX_AXIS
-    assert PUBLISHED["naxis"] % 4 == 0
+    meta = [t.to("meta") for t in (h2, R)]
+    with pytest.raises(TypeError, match="float32"):
+        K13.descriptor(*meta, [t.to("meta") for t in w3],
+                       [t.to("meta") for t in b3], ntype, 4)
+    meta = [t.to("meta", torch.float32) for t in (h2, R)]
+    w = [t.to("meta", torch.float32).requires_grad_() for t in w3]
+    with pytest.raises(ValueError, match="gradient"):
+        K13.descriptor(*meta, w, [t.to("meta", torch.float32) for t in b3],
+                       ntype, 4)
+    assert K13.launches == before
